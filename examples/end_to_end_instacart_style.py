@@ -13,19 +13,19 @@ import jax
 import numpy as np
 import pandas as pd
 
-from two_tower_recommender_model_tpu import config as cfg
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.data.feature_engineering import (
+from two_tower_recommender_model import config as cfg
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.data.feature_engineering import (
     build_positive_pairs, index_ids, per_user_split, sample_negatives,
     splits_to_columns, union_pos_neg)
-from two_tower_recommender_model_tpu.data.loader import StreamLoader
-from two_tower_recommender_model_tpu.data.shards import write_dataset
-from two_tower_recommender_model_tpu.evaluation import evaluate_retrieval
-from two_tower_recommender_model_tpu.serving import load_scorer
-from two_tower_recommender_model_tpu.train import (
+from two_tower_recommender_model.data.loader import StreamLoader
+from two_tower_recommender_model.data.shards import write_dataset
+from two_tower_recommender_model.evaluation import evaluate_retrieval
+from two_tower_recommender_model.serving import load_scorer
+from two_tower_recommender_model.train import (
     create_train_state, make_eval_step, make_train_step, train_val_test)
-from two_tower_recommender_model_tpu.utils.checkpoint import Checkpointer, export_model
-from two_tower_recommender_model_tpu.utils.tracking import ExperimentLogger
+from two_tower_recommender_model.utils.checkpoint import Checkpointer, export_model
+from two_tower_recommender_model.utils.tracking import ExperimentLogger
 
 
 def main(work: str | None = None) -> dict:

@@ -30,18 +30,20 @@ def stage(name, t0):
 def main(work: str | None = None) -> dict:
     import jax
 
-    from two_tower_recommender_model_tpu import config as cfg
-    from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-    from two_tower_recommender_model_tpu.data.feature_engineering import (
+    from two_tower_recommender_model import config as cfg
+    from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+    from two_tower_recommender_model.data.feature_engineering import (
         per_user_split, splits_to_columns)
-    from two_tower_recommender_model_tpu.data.loader import StreamLoader
-    from two_tower_recommender_model_tpu.data.shards import write_dataset
-    from two_tower_recommender_model_tpu.evaluation import evaluate_retrieval
-    from two_tower_recommender_model_tpu.data.device_featurizer import unpack_batch
-    from two_tower_recommender_model_tpu.train import (
+    from two_tower_recommender_model.data.loader import StreamLoader
+    from two_tower_recommender_model.data.shards import write_dataset
+    from two_tower_recommender_model.evaluation import evaluate_retrieval
+    from two_tower_recommender_model.data.device_featurizer import unpack_batch
+    from two_tower_recommender_model.train import (
         create_train_state, evaluate, make_eval_step, make_multi_step, make_train_step)
-    from two_tower_recommender_model_tpu.train.loop import train_one_epoch_packed
+    from two_tower_recommender_model.train.loop import train_one_epoch_packed
+    from two_tower_recommender_model.utils.profiling import device_label
 
+    print(f"device: {device_label()}", flush=True)  # beside every timing below
     work = work or tempfile.mkdtemp(prefix="full_scale_")
     N_USERS, N_ITEMS = 206_209, 49_688
     t0 = time.perf_counter()
@@ -64,9 +66,9 @@ def main(work: str | None = None) -> dict:
     #    val/test stay raw columns for the featureful eval path.
     mcfg = cfg.two_tower_model_config(N_USERS + 1, N_ITEMS + 1, embedding_dim=128,
                                       layer_sizes=(128, 64))
-    from two_tower_recommender_model_tpu.data.prepacked import (
+    from two_tower_recommender_model.data.prepacked import (
         PrepackedFeaturizer, pack_dataset)
-    from two_tower_recommender_model_tpu.data.shards import ShardedDataset
+    from two_tower_recommender_model.data.shards import ShardedDataset
 
     split = per_user_split(df, seed=0)
     splits = splits_to_columns(split, user_col="user_id", item_col="product_id")
@@ -85,13 +87,10 @@ def main(work: str | None = None) -> dict:
         mcfg,
         query_tower=dataclasses.replace(mcfg.query_tower, final_activation=False),
         candidate_tower=dataclasses.replace(mcfg.candidate_tower, final_activation=False))
-    # sorted fast path on by default (loss-invariant row sort, DESIGN §6c);
-    # FS_BLOCK_KERNEL=float32 additionally routes the user table through the
-    # block-sorted MXU kernels (§6e — one extra ~1-2 min Mosaic compile)
+    # sorted fast path on by default (loss-invariant row sort, DESIGN §6c)
     tcfg = cfg.TrainConfig(epochs=8, batch_size=65_536, sparse_learning_rate=0.2,
                            learning_rate=3e-3, limit_val_batches=8,
-                           sorted_feature="user_id",
-                           block_sorted_kernel=os.environ.get("FS_BLOCK_KERNEL", "off"))
+                           sorted_feature="user_id")
     feat = Featurizer(mcfg)
     train_ds = ShardedDataset(os.path.join(work, "train"))
     pf = PrepackedFeaturizer.for_dataset(train_ds, mcfg, sort_feature="user_id")

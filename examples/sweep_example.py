@@ -10,13 +10,13 @@ import dataclasses
 
 import jax
 
-from two_tower_recommender_model_tpu import config as cfg
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.train import (
+from two_tower_recommender_model import config as cfg
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.train import (
     create_train_state, make_eval_step, make_train_step)
-from two_tower_recommender_model_tpu.train.loop import evaluate
-from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
-from two_tower_recommender_model_tpu.tuning import (
+from two_tower_recommender_model.train.loop import evaluate
+from two_tower_recommender_model.train.pipeline import prefetch_to_device
+from two_tower_recommender_model.tuning import (
     Choice, LogUniform, multi_seed_train, run_sweep)
 
 N_USERS, N_ITEMS = 500, 200
@@ -90,7 +90,7 @@ def main():
 
     # 2. ASHA early stopping: bad configs are cut after 1 epoch; survivors
     #    train the full budget (the Tune scheduler role)
-    from two_tower_recommender_model_tpu.tuning.adaptive import (
+    from two_tower_recommender_model.tuning.adaptive import (
         asha_best, asha_total_resource, run_asha)
 
     trials = run_asha(trial_resumable, SPACE, num_trials=8, metric="val_loss",

@@ -28,14 +28,14 @@ def main(num_users=2000, num_items=500, text_dim=32, steps=200,
     import jax.numpy as jnp
     import pandas as pd
 
-    from two_tower_recommender_model_tpu import config as cfg
-    from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-    from two_tower_recommender_model_tpu.data.text_features import (
+    from two_tower_recommender_model import config as cfg
+    from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+    from two_tower_recommender_model.data.text_features import (
         build_product_text_features,
     )
-    from two_tower_recommender_model_tpu.evaluation.retrieval import evaluate_retrieval
-    from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
-    from two_tower_recommender_model_tpu.train.step import create_train_state, make_train_step
+    from two_tower_recommender_model.evaluation.retrieval import evaluate_retrieval
+    from two_tower_recommender_model.train.pipeline import prefetch_to_device
+    from two_tower_recommender_model.train.step import create_train_state, make_train_step
 
     # 1. product text -> embedding table aligned to raw item id (row 0 = pad)
     products = pd.DataFrame({
@@ -45,7 +45,7 @@ def main(num_users=2000, num_items=500, text_dim=32, steps=200,
         "aisle": [f"aisle_{i % 134}" for i in range(1, num_items + 1)],
     })
     if precomputed_path is not None:
-        from two_tower_recommender_model_tpu.data.text_features import (
+        from two_tower_recommender_model.data.text_features import (
             load_precomputed_embeddings,
         )
 
@@ -100,7 +100,7 @@ if __name__ == "__main__":
     if "--precomputed" in sys.argv:
         # produce an embedding file in the ai_query-output shape, then run
         # the whole pipeline through the ingestion path
-        from two_tower_recommender_model_tpu.data.text_features import (
+        from two_tower_recommender_model.data.text_features import (
             embed_text,
             save_precomputed_embeddings,
         )

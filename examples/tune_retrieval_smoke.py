@@ -43,17 +43,17 @@ def prepare_smoke(work: str) -> tuple[str, dict]:
 def main(work: str | None = None):
     import jax
 
-    from two_tower_recommender_model_tpu import config as cfg
-    from two_tower_recommender_model_tpu.data.device_featurizer import (
+    from two_tower_recommender_model import config as cfg
+    from two_tower_recommender_model.data.device_featurizer import (
         PackedFeaturizer, make_packed_train_step, unpack_batch)
-    from two_tower_recommender_model_tpu.data.loader import StreamLoader
-    from two_tower_recommender_model_tpu.evaluation.retrieval import (
+    from two_tower_recommender_model.data.loader import StreamLoader
+    from two_tower_recommender_model.evaluation.retrieval import (
         evaluate_retrieval, split_positives)
-    from two_tower_recommender_model_tpu.train.loop import train_one_epoch_packed
-    from two_tower_recommender_model_tpu.train.step import (
+    from two_tower_recommender_model.train.loop import train_one_epoch_packed
+    from two_tower_recommender_model.train.step import (
         create_train_state, full_params, make_multi_step, make_train_step)
-    from two_tower_recommender_model_tpu.tuning.adaptive import run_adaptive_sweep
-    from two_tower_recommender_model_tpu.tuning.sweep import Choice, LogUniform
+    from two_tower_recommender_model.tuning.adaptive import run_adaptive_sweep
+    from two_tower_recommender_model.tuning.sweep import Choice, LogUniform
 
     work = work or "/tmp/tune_retrieval_smoke"
     shards, meta = prepare_smoke(work)

@@ -14,12 +14,12 @@ import urllib.request
 import jax
 import numpy as np
 
-from two_tower_recommender_model_tpu import config as cfg
-from two_tower_recommender_model_tpu.data import Featurizer
-from two_tower_recommender_model_tpu.data.feature_engineering import binarize_ratings
-from two_tower_recommender_model_tpu.serving import Scorer
-from two_tower_recommender_model_tpu.serving.server import ModelServer, validate_serving_input
-from two_tower_recommender_model_tpu.train import (
+from two_tower_recommender_model import config as cfg
+from two_tower_recommender_model.data import Featurizer
+from two_tower_recommender_model.data.feature_engineering import binarize_ratings
+from two_tower_recommender_model.serving import Scorer
+from two_tower_recommender_model.serving.server import ModelServer, validate_serving_input
+from two_tower_recommender_model.train import (
     create_train_state, make_eval_step, make_train_step, train_val_test)
 
 

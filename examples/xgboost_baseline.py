@@ -8,9 +8,9 @@ float features + an integer target of `num_labels` classes) and
 `logistic` / multiclass `softprob` objective switched on `num_labels`,
 `n_estimators` rounds at `max_depth`, wall-clock + metrics logged to MLflow).
 
-TPU-native notes: gradient-boosted trees are a HOST workload — there is no
-MXU story for histogram tree building, so this baseline intentionally runs
-on CPU via sklearn's `HistGradientBoostingClassifier` (the same
+Notes: gradient-boosted trees are a HOST workload here — histogram tree
+building is not what the accelerator path is for, so this baseline
+intentionally runs on CPU via sklearn's `HistGradientBoostingClassifier` (the same
 histogram-split algorithm class as `tree_method="hist"` XGBoost; the
 xgboost package itself is not in this image). Its purpose here is what it
 is in the reference: a tabular-model timing/quality baseline to hold next
@@ -79,7 +79,7 @@ def train_baseline(rows: int = 100_000, cols: int = 100, labels: int = 2,
             float((proba.argmax(1) != y_va).mean()), 5)
 
     if runs_root:
-        from two_tower_recommender_model_tpu.utils.tracking import ExperimentLogger
+        from two_tower_recommender_model.utils.tracking import ExperimentLogger
 
         logger = ExperimentLogger(runs_root)
         logger.log_params({

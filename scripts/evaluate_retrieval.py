@@ -34,11 +34,11 @@ def main():
 
     import numpy as np
 
-    from two_tower_recommender_model_tpu.evaluation.retrieval import (
+    from two_tower_recommender_model.evaluation.retrieval import (
         evaluate_retrieval,
         split_positives,
     )
-    from two_tower_recommender_model_tpu.utils.checkpoint import load_model
+    from two_tower_recommender_model.utils.checkpoint import load_model
 
     model_cfg, params = load_model(args.model_dir)
 
@@ -60,11 +60,11 @@ def main():
     if args.per_user_table:
         import jax.numpy as jnp
 
-        from two_tower_recommender_model_tpu.evaluation.retrieval import (
+        from two_tower_recommender_model.evaluation.retrieval import (
             export_feature_embeddings,
             per_user_retrieval_table,
         )
-        from two_tower_recommender_model_tpu.ops.topk import chunked_topk
+        from two_tower_recommender_model.ops.topk import chunked_topk
 
         users = np.array(sorted(user_positives.keys())[: args.max_users])
         q = export_feature_embeddings(params, model_cfg, "user_id", ids=users)

@@ -56,7 +56,7 @@ def main() -> int:
         if not args.replica:
             print("kaggle CLI not found — generating the schema-faithful replica "
                   "(pass real CSVs via --out to use organic data)", file=sys.stderr)
-        from two_tower_recommender_model_tpu.data.replica import (
+        from two_tower_recommender_model.data.replica import (
             REAL_PRODUCTS,
             REAL_USERS,
             write_instacart_replica,

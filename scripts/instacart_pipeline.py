@@ -41,20 +41,15 @@ def run(cmd: list[str]) -> None:
 
 
 def apply_fast_preset(args) -> None:
-    """`--fast`: the measured production-best single-chip flags (explicit
-    flags win). Pre-packed mmap shards + wire cache kill the per-epoch host
-    cost; sorted feature + bf16 block-sorted kernels + bf16 tower compute
-    set the 40.2M-ex/s (6.53 ms/step) device configuration — full-scale
-    recall parity for the complete bf16 route measured in round 4
-    (0.2482 vs 0.2487 f32, BENCH_FULL_SCALE.md §round-4; params and both
-    optimizers stay f32). Pass `--block-sorted-kernel float32` for exact
-    f32 table math (23M ex/s)."""
+    """`--fast`: the production flags for one device (explicit flags win).
+    Pre-packed mmap shards + wire cache cut the per-epoch host cost; the
+    sorted feature enables the sorted-scatter update; bf16 tower compute
+    runs the towers on the bf16 tensor cores (params and both optimizers
+    stay f32)."""
     args.packed = True
     args.wire_cache = True
     if args.sorted_feature is None:
         args.sorted_feature = "user_id"
-    if args.block_sorted_kernel is None:
-        args.block_sorted_kernel = "bfloat16"
     if args.compute_dtype is None:
         args.compute_dtype = "bfloat16"
 
@@ -77,9 +72,6 @@ def main():
     ap.add_argument("--softmax-temperature", type=float, default=1.0,
                     help="sampled_softmax logit temperature (tuned on the "
                          "smoke replica by examples/tune_retrieval_smoke.py)")
-    ap.add_argument("--block-sorted-kernel", default=None,
-                    choices=["off", "float32", "bfloat16"],
-                    help="pass-through to train.py (block-sorted MXU kernels)")
     ap.add_argument("--wire-cache", action="store_true",
                     help="train through a pre-encoded wire cache under "
                          "<work>/wirecache (data/wirecache.py)")
@@ -90,12 +82,11 @@ def main():
                          "wire fast paths)")
     ap.add_argument("--compute-dtype", default=None,
                     choices=["float32", "bfloat16"],
-                    help="tower MXU dtype passthrough to train.py")
+                    help="tower matmul dtype passthrough to train.py")
     ap.add_argument("--fast", action="store_true",
-                    help="production-best single-chip preset: pre-packed "
-                         "shards, sorted feature + bf16 block-sorted kernels, "
-                         "wire cache, bf16 tower compute (full-scale recall "
-                         "parity measured in BENCH_FULL_SCALE.md round-4)")
+                    help="production preset for one device: pre-packed "
+                         "shards, sorted feature, wire cache, bf16 tower "
+                         "compute")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -138,8 +129,6 @@ def main():
         "--runs-root", os.path.join(args.work, "runs"),
         "--export-dir", model_dir,
     ] + (["--sorted-feature", args.sorted_feature] if args.sorted_feature else [])
-      + (["--block-sorted-kernel", args.block_sorted_kernel]
-         if args.block_sorted_kernel else [])
       + (["--wire-cache", os.path.join(args.work, "wirecache")]
          if args.wire_cache else [])
       + (["--macro-batches", str(args.macro_batches)]

@@ -36,12 +36,12 @@ def main():
 
     import numpy as np
 
-    from two_tower_recommender_model_tpu.data.feature_engineering import (
+    from two_tower_recommender_model.data.feature_engineering import (
         build_positive_pairs, index_ids, per_user_split, sample_negatives,
         splits_to_columns, union_pos_neg,
     )
-    from two_tower_recommender_model_tpu.data.ingest import build_order_detail, read_csv_table
-    from two_tower_recommender_model_tpu.data.shards import write_dataset
+    from two_tower_recommender_model.data.ingest import build_order_detail, read_csv_table
+    from two_tower_recommender_model.data.shards import write_dataset
 
     orders = read_csv_table(os.path.join(args.csv_dir, "orders.csv"), "orders")
     products = read_csv_table(os.path.join(args.csv_dir, "products.csv"), "products")
@@ -64,8 +64,8 @@ def main():
 
     os.makedirs(args.out, exist_ok=True)
     if args.packed:
-        from two_tower_recommender_model_tpu import config as cfg_lib
-        from two_tower_recommender_model_tpu.data.prepacked import pack_dataset
+        from two_tower_recommender_model import config as cfg_lib
+        from two_tower_recommender_model.data.prepacked import pack_dataset
 
         mcfg = cfg_lib.two_tower_model_config(
             num_users=len(mappings["user_id"]) + 1,

@@ -21,7 +21,7 @@ import os
 import re
 
 
-def parse_args():
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--data-dir", required=True, help="dir with train/ val/ test/ TTRS datasets")
     ap.add_argument("--num-users", type=int, required=True)
@@ -48,8 +48,7 @@ def parse_args():
     ap.add_argument("--no-packed", action="store_true",
                     help="disable the packed macro-batch fast path (single-device only)")
     ap.add_argument("--macro-batches", type=int, default=32,
-                    help="steps per dispatch on the packed fast path (32 measured "
-                         "~30%% faster than 16 at flagship shapes; mid-epoch "
+                    help="steps per dispatch on the packed fast path (mid-epoch "
                          "validation lands on macro boundaries, so larger values "
                          "coarsen the validation_freq grid)")
     ap.add_argument("--export-dir", default=None, help="export saved model here at the end")
@@ -60,18 +59,6 @@ def parse_args():
                          "'auto' (default) picks the largest eligible table and "
                          "silently disables where the fast path doesn't apply; "
                          "'off' disables")
-    ap.add_argument("--block-sorted-kernel",
-                    choices=["auto", "off", "float32", "bfloat16"],
-                    default="auto",
-                    help="route table ops through the block-sorted one-hot MXU "
-                         "kernels (DESIGN §6e): the sorted feature's gather+update "
-                         "directly, every other eligible f32 table's update via a "
-                         "device-sort front-end (works without --sorted-feature, "
-                         "multi-host included); float32 keeps f32-exact math, "
-                         "bfloat16 rounds operands for ~3x MXU rate. 'auto' "
-                         "(default) picks float32 when the shapes fit the "
-                         "kernels' tiling (measured faster: step 15.6 -> 11.3 ms "
-                         "at bs=262k flagship), off otherwise")
     ap.add_argument("--wire-cache", default=None, metavar="DIR",
                     help="pre-encoded batch cache (data/wirecache.py): built on "
                          "first use from epoch-0 loader order, reused after — "
@@ -90,7 +77,7 @@ def parse_args():
                          "epoch runs an exact top-k retrieval eval on a val-"
                          "user subsample — the right selector for the "
                          "sampled_softmax objective, whose val AUROC "
-                         "misleads (BENCH_FULL_SCALE.md)")
+                         "misleads")
     ap.add_argument("--retrieval-eval-users", type=int, default=2000,
                     help="user subsample size for the per-epoch retrieval "
                          "eval (--select-best val_recall_at_100 etc.)")
@@ -100,20 +87,18 @@ def parse_args():
                     help="batch order per wire-cache epoch. 'auto' (default): "
                          "loader order on a fresh generation (bitwise-"
                          "identical to dynamic training), seeded rotation on "
-                         "generation reuse. A uniform 'shuffle' measurably "
-                         "costs recall at full scale (0.222-0.227 vs 0.249; "
-                         "BENCH_FULL_SCALE.md)")
+                         "generation reuse. A uniform 'shuffle' has cost "
+                         "recall at full scale")
     ap.add_argument("--wire-cache-generations", type=int, default=1,
                     help="number of distinct batch compositions to pre-encode "
                          "(DIR/gen-N, one per loader-epoch row shuffle), cycled "
                          "across training epochs — a single frozen composition "
-                         "measurably overfits multi-epoch runs (recall@100 "
-                         "0.2246 vs 0.2487 at full scale, 3 epochs); set to "
-                         "the epoch count for full row-level freshness")
+                         "overfits multi-epoch runs; set to the epoch count "
+                         "for full row-level freshness")
     ap.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default="float32",
-                    help="MXU dtype for the tower matmuls (params and optimizer state "
-                         "stay float32). bfloat16 triples the f32 MXU rate on v5e; "
-                         "quality parity measured in BENCH_FULL_SCALE.md")
+                    help="dtype of the tower matmuls (params and optimizer state "
+                         "stay float32); bfloat16 runs them on the bf16 tensor "
+                         "cores")
     ap.add_argument("--table-dtype", choices=["float32", "bfloat16", "int8"],
                     default="float32",
                     help="embedding-table storage dtype (Adagrad math stays float32); "
@@ -139,34 +124,39 @@ def parse_args():
                          "bit-packs pre-hashed ids (4.375 B/example flagship vs 8 — "
                          "identical numerics; wins when H2D bandwidth binds). 'auto' "
                          "picks compact on the single-device path when batch size %% 8 == 0")
-    return ap.parse_args()
+    return ap.parse_args(argv)
 
 
-def main():
-    args = parse_args()
+def main(argv=None) -> dict:
+    """Train, evaluate and optionally export. Returns the final state and
+    metrics, plus, on the packed path, the compiled macro step and the
+    featurizer that feeds it (`chip_smoke.py` times them)."""
+    args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
 
+    from two_tower_recommender_model.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.multi_host:
-        from two_tower_recommender_model_tpu.parallel.launch import initialize_multi_host
+        from two_tower_recommender_model.parallel.launch import initialize_multi_host
 
         initialize_multi_host()
 
     import jax
 
-    from two_tower_recommender_model_tpu import config as cfg_lib
-    from two_tower_recommender_model_tpu.data import Featurizer
-    from two_tower_recommender_model_tpu.data.loader import StreamLoader
-    from two_tower_recommender_model_tpu.parallel import (
+    from two_tower_recommender_model import config as cfg_lib
+    from two_tower_recommender_model.data import Featurizer
+    from two_tower_recommender_model.data.loader import StreamLoader
+    from two_tower_recommender_model.parallel import (
         batch_sharding, make_mesh, make_sharded_eval_step, make_sharded_train_step,
         plan_sharding, shard_train_state,
     )
-    from two_tower_recommender_model_tpu.parallel.launch import per_host_loader_slice
-    from two_tower_recommender_model_tpu.train.loop import train_val_test
-    from two_tower_recommender_model_tpu.train.step import (
+    from two_tower_recommender_model.parallel.launch import per_host_loader_slice
+    from two_tower_recommender_model.train.loop import train_val_test
+    from two_tower_recommender_model.train.step import (
         create_train_state, make_eval_step, make_train_step,
     )
-    from two_tower_recommender_model_tpu.utils.checkpoint import Checkpointer, export_model
-    from two_tower_recommender_model_tpu.utils.tracking import ExperimentLogger
+    from two_tower_recommender_model.utils.tracking import ExperimentLogger
 
     mcfg = cfg_lib.two_tower_model_config(
         num_users=args.num_users, num_items=args.num_items,
@@ -183,7 +173,7 @@ def main():
     elif args.sorted_feature == "auto":
         # fast-by-default: sort by the largest eligible table's feature where
         # the fast path applies, silently off elsewhere
-        from two_tower_recommender_model_tpu.train.step import auto_sorted_feature
+        from two_tower_recommender_model.train.step import auto_sorted_feature
 
         args.sorted_feature = (
             auto_sorted_feature(mcfg)
@@ -192,56 +182,6 @@ def main():
         sorted_auto = args.sorted_feature is not None
         if args.sorted_feature:
             logging.info("sorted-feature auto: %s", args.sorted_feature)
-        elif args.block_sorted_kernel != "off":
-            # auto resolved to OFF: the kernels still run in device-sort
-            # update mode (no block gather; eligible tables sort on device)
-            logging.info("block-sorted-kernel: device-sort update mode "
-                         "(sorted-feature auto found no eligible feature)")
-    if args.block_sorted_kernel == "auto":
-        # fast-by-default, mirror --sorted-feature auto: the block kernels'
-        # SORTED-table route is unguarded by shape gates (the unsorted
-        # device-sort front-end checks shapes itself), so auto enables f32
-        # kernels only when the sorted table's dim and the batch fit the
-        # tiling and its storage has a block path (f32/int8)
-        from two_tower_recommender_model_tpu.ops.block_sorted import (
-            block_sorted_profitable,
-            block_sorted_shapes_ok,
-        )
-
-        ok = args.batch_size % 128 == 0
-        if ok and args.sorted_feature:
-            st = mcfg.feature(args.sorted_feature).table
-            ok = (block_sorted_shapes_ok(mcfg.table(st).embedding_dim,
-                                         args.batch_size)
-                  and mcfg.table_dtype_of(st) in ("float32", "int8"))
-        if ok:
-            # the block kernels stream every table block, so they lose to
-            # XLA gather/scatter once the batch spreads too thin over the
-            # table (r5 crossover sweep: wins at 651 ids/block, loses at
-            # 67 — an 86-vs-53 ms regression at 8M rows). block_sorted_kernel
-            # is a global switch, so auto enables it only when EVERY table
-            # that would route through the kernels is profitable at its own
-            # flat-id count (batch x slots of the features reading it); one
-            # oversized table turns the mode off rather than silently paying
-            # its O(table) streaming cost (explicit --block-sorted-kernel
-            # remains the per-user override)
-            def _flat_ids(t):
-                slots = sum(f.max_ids_per_sample for f in mcfg.features
-                            if f.table == t.name)
-                return args.batch_size * max(slots, 1)
-
-            ok = all(
-                block_sorted_profitable(t.num_embeddings, _flat_ids(t))
-                for t in mcfg.tables
-                if mcfg.table_dtype_of(t.name) in ("float32", "int8")
-            )
-        # kernel dtype follows the user's chosen compute class: bf16 towers
-        # (--compute-dtype bfloat16) get bf16 kernel operands too — same
-        # numerics class, full-scale recall parity + 6.53 ms vs 8.5 ms steps
-        # (BENCH_FULL_SCALE.md §round-4); exact-f32 users keep exact kernels
-        kdt = "bfloat16" if args.compute_dtype == "bfloat16" else "float32"
-        args.block_sorted_kernel = kdt if ok else "off"
-        logging.info("block-sorted-kernel auto: %s", args.block_sorted_kernel)
     tcfg = cfg_lib.TrainConfig(
         epochs=args.epochs, batch_size=args.batch_size,
         learning_rate=args.learning_rate, sparse_learning_rate=args.sparse_learning_rate,
@@ -251,7 +191,6 @@ def main():
         limit_val_batches=args.limit_val_batches,
         limit_test_batches=args.limit_test_batches,
         sorted_feature=args.sorted_feature,
-        block_sorted_kernel=args.block_sorted_kernel,
         sharded_exchange=args.sharded_exchange,
         exchange_capacity_factor=args.exchange_capacity_factor,
         exchange_wire_dtype=args.exchange_wire_dtype,
@@ -292,20 +231,16 @@ def main():
             # strategy the sorted fast paths don't cover (column/table-wise)
             import dataclasses as _dc
 
-            from two_tower_recommender_model_tpu.parallel.planner import (
+            from two_tower_recommender_model.parallel.planner import (
                 REPLICATED as _REP, ROW_SHARDED as _ROW,
             )
-            from two_tower_recommender_model_tpu.train.step import (
+            from two_tower_recommender_model.train.step import (
                 validate_sorted_feature as _vsf,
             )
 
             st = plan[_vsf(mcfg, tcfg)].strategy
-            if st not in (_ROW, _REP) or (
-                args.block_sorted_kernel != "off" and st != _ROW
-            ):
-                # the sorted fast paths don't cover this strategy; the block
-                # kernels stay on in device-sort update mode (in-graph
-                # per-table eligibility gating)
+            if st not in (_ROW, _REP):
+                # the sorted fast paths don't cover this strategy
                 logging.info("sorted-feature auto: off (table is %s)", st)
                 args.sorted_feature = None
                 tcfg = _dc.replace(tcfg, sorted_feature=None)
@@ -321,7 +256,7 @@ def main():
 
     logger = ExperimentLogger(args.runs_root) if jax.process_index() == 0 else None
     if logger:
-        from two_tower_recommender_model_tpu.parallel.mesh import topology_summary
+        from two_tower_recommender_model.parallel.mesh import topology_summary
 
         topo = topology_summary()
         # hyperparams + cluster metadata (the reference logs both,
@@ -335,7 +270,11 @@ def main():
             "devices_per_host": topo.devices_per_host,
         })
 
-    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    ckpt = None
+    if args.checkpoint_dir:
+        from two_tower_recommender_model.utils.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(args.checkpoint_dir)
     train_loader = StreamLoader(
         os.path.join(args.data_dir, "train"), args.batch_size, seed=args.seed,
         host_index=host_index, num_hosts=num_hosts,
@@ -383,18 +322,18 @@ def main():
     # validation, limits, tail batches) via train_one_epoch_packed. The
     # sharded variant scans the sharded step (make_sharded_multi_step) with
     # the macro payload's batch axis on the data mesh axis.
-    train_epoch_fn = None
+    train_epoch_fn = multi = packed_feat = None
     if not args.no_packed:
         # multi-host included: macro payloads assemble across processes via
         # make_array_from_process_local_data (tested in test_multihost.py)
         import jax as _jax
 
-        from two_tower_recommender_model_tpu.data.device_featurizer import (
+        from two_tower_recommender_model.data.device_featurizer import (
             PackedFeaturizer, make_packed_train_step, unpack_batch,
         )
-        from two_tower_recommender_model_tpu.data.prepacked import PrepackedFeaturizer
-        from two_tower_recommender_model_tpu.train.loop import train_one_epoch_packed
-        from two_tower_recommender_model_tpu.train.step import make_multi_step
+        from two_tower_recommender_model.data.prepacked import PrepackedFeaturizer
+        from two_tower_recommender_model.train.loop import train_one_epoch_packed
+        from two_tower_recommender_model.train.step import make_multi_step
 
         if train_loader.dataset.index.get("packed"):
             packed_feat = PrepackedFeaturizer.for_dataset(
@@ -410,7 +349,7 @@ def main():
         # label
         pl = packed_feat.pack_label
         if sharded:
-            from two_tower_recommender_model_tpu.parallel import (
+            from two_tower_recommender_model.parallel import (
                 compact_macro_shardings_for_scheme,
                 macro_batch_sharding,
                 make_sharded_compact_multi_step,
@@ -428,7 +367,7 @@ def main():
                         if args.batch_size % (8 * n_devices) == 0
                         and _jax.process_count() == 1 else "packed")
             if wire == "compact":
-                from two_tower_recommender_model_tpu.data.compact import (
+                from two_tower_recommender_model.data.compact import (
                     CompactFeaturizer, CompactScheme, batch_from_compact,
                 )
 
@@ -439,7 +378,7 @@ def main():
                     # sorts its own slice (loss-invariant) and delta-encodes
                     # it as one segment; the decode cumsum resets at process
                     # boundaries (CompactScheme.delta_segments)
-                    from two_tower_recommender_model_tpu.train.step import (
+                    from two_tower_recommender_model.train.step import (
                         auto_sorted_feature,
                     )
 
@@ -488,7 +427,7 @@ def main():
             if wire == "auto":
                 wire = "compact" if args.batch_size % 8 == 0 else "packed"
             if wire == "compact":
-                from two_tower_recommender_model_tpu.data.compact import (
+                from two_tower_recommender_model.data.compact import (
                     CompactFeaturizer, CompactScheme, batch_from_compact,
                     make_compact_train_step,
                 )
@@ -511,11 +450,11 @@ def main():
             macro_sh = tail_sh = None
 
         # prepacked val/test datasets eval through the packed eval step
-        from two_tower_recommender_model_tpu.data.shards import ShardedDataset
+        from two_tower_recommender_model.data.shards import ShardedDataset
 
         val_ds = ShardedDataset(os.path.join(args.data_dir, "val"))
         if val_ds.index.get("packed"):
-            from two_tower_recommender_model_tpu.data.device_featurizer import (
+            from two_tower_recommender_model.data.device_featurizer import (
                 make_packed_eval_step,
             )
 
@@ -530,7 +469,7 @@ def main():
             if scheme_wc is None:
                 raise SystemExit("--wire-cache requires the compact wire format "
                                  "(drop --wire-format packed)")
-            from two_tower_recommender_model_tpu.data.wirecache import (
+            from two_tower_recommender_model.data.wirecache import (
                 WireCache, build_wire_cache,
             )
 
@@ -574,13 +513,13 @@ def main():
             wire_cache = wire_caches[0]
             wc_limit = min(c.num_batches for c in wire_caches)
             if args.loss == "sampled_softmax" and len(wire_caches) < args.epochs:
-                # recall stays at parity (measured 0.2924 vs 0.2942), but the
-                # in-batch objective's val AUROC drifts harder when negative
+                # recall stays at parity, but the in-batch objective's val
+                # AUROC drifts harder when negative
                 # co-occurrence sets repeat — don't read AUROC as quality here
                 logging.warning(
                     "wire cache: %d generation(s) < %d epochs with an in-batch "
                     "loss — composition reuse accelerates val-AUROC calibration "
-                    "drift (retrieval recall unaffected; BENCH_FULL_SCALE.md). "
+                    "drift (retrieval recall unaffected). "
                     "Use --wire-cache-generations %d for fresh compositions.",
                     len(wire_caches), args.epochs, args.epochs)
             if _jax.process_count() > 1:
@@ -634,12 +573,12 @@ def main():
 
     # --select-best on a RETRIEVAL metric (val_recall_at_100 etc.): per-epoch
     # exact top-k on a user subsample feeds the selector — val AUROC is not a
-    # selection signal for the in-batch objective (BENCH_FULL_SCALE.md r2c)
+    # selection signal for the in-batch objective
     retrieval_eval_fn = None
     if args.select_best and any(
         t in args.select_best for t in ("recall", "ndcg", "mrr", "precision", "hit")
     ):
-        from two_tower_recommender_model_tpu.evaluation.retrieval import (
+        from two_tower_recommender_model.evaluation.retrieval import (
             make_retrieval_eval_fn,
             split_positives,
         )
@@ -649,10 +588,10 @@ def main():
         k_sel = int(m.group(1)) if m else 100
         params_fn = None
         if sharded:
-            from two_tower_recommender_model_tpu.parallel.sharded import (
+            from two_tower_recommender_model.parallel.sharded import (
                 unshard_train_state,
             )
-            from two_tower_recommender_model_tpu.train.step import full_params
+            from two_tower_recommender_model.train.step import full_params
 
             def params_fn(state):
                 return full_params(unshard_train_state(state, plan, mcfg))
@@ -676,10 +615,14 @@ def main():
         select_best=args.select_best,
         retrieval_eval_fn=retrieval_eval_fn,
     )
+    from two_tower_recommender_model.utils.profiling import device_label
+
+    print(f"device: {device_label()}")
     print({k: round(v, 5) for k, v in results.items()})
 
     if args.export_dir and jax.process_index() == 0:
-        from two_tower_recommender_model_tpu.parallel.sharded import unshard_train_state
+        from two_tower_recommender_model.parallel.sharded import unshard_train_state
+        from two_tower_recommender_model.utils.checkpoint import export_model
 
         export_state = state
         if n_devices > 1 and not args.no_shard:
@@ -688,6 +631,8 @@ def main():
         print(f"exported model to {args.export_dir}")
     if ckpt is not None:
         ckpt.close()
+    return {"state": state, "results": results, "macro_step": multi,
+            "featurizer": packed_feat}
 
 
 if __name__ == "__main__":

@@ -6,14 +6,14 @@ import time
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu.tuning.adaptive import (
+from two_tower_recommender_model.tuning.adaptive import (
     TPESampler,
     asha_best,
     asha_total_resource,
     run_adaptive_sweep,
     run_asha,
 )
-from two_tower_recommender_model_tpu.tuning.sweep import (
+from two_tower_recommender_model.tuning.sweep import (
     Choice,
     LogUniform,
     Uniform,
@@ -130,8 +130,8 @@ def test_adaptive_sweep_parallel_driver():
 def test_tpe_never_resuggests_observed_config():
     """Clipped boundary anchors used to converge to an exact duplicate and
     burn the remaining trial budget re-evaluating one config."""
-    from two_tower_recommender_model_tpu.tuning.adaptive import TPESampler
-    from two_tower_recommender_model_tpu.tuning.sweep import LogUniform
+    from two_tower_recommender_model.tuning.adaptive import TPESampler
+    from two_tower_recommender_model.tuning.sweep import LogUniform
 
     space = {"x": LogUniform(0.1, 1.0)}
     s = TPESampler(space, seed=0, n_startup=2)

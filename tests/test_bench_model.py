@@ -1,5 +1,5 @@
-"""bench.py's pure pieces — the driver parses its one JSON line, so the
-variant grammar and the roofline refusal must stay locked."""
+"""bench.py's pure pieces — the variant grammar, the peak table and the
+roofline refusal must stay locked, and the stdout line must stay compact."""
 
 import importlib.util
 import json
@@ -12,224 +12,95 @@ spec = importlib.util.spec_from_file_location("bench", os.path.join(REPO, "bench
 bench = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(bench)
 
+H100 = "NVIDIA H100 80GB HBM3"
+
 
 def test_parse_variant_grammar():
-    # (table_dtype, sorted, bf16buf, compact, block_kernel, delta)
-    assert bench.parse_variant("float32") == ("float32", False, False, False, "off", False)
-    assert bench.parse_variant("float32+sorted") == ("float32", True, False, False, "off", False)
-    # delta implies sorted+compact; blockkernel implies sorted
-    assert bench.parse_variant("float32+delta") == ("float32", True, False, True, "off", True)
+    # (table_dtype, sorted, bf16buf, compact, delta)
+    assert bench.parse_variant("float32") == ("float32", False, False, False, False)
+    assert bench.parse_variant("float32+sorted") == ("float32", True, False, False, False)
+    # delta implies sorted+compact
+    assert bench.parse_variant("float32+delta") == ("float32", True, False, True, True)
     assert bench.parse_variant("int8+sorted+compact+delta") == (
-        "int8", True, False, True, "off", True)
-    assert bench.parse_variant("float32+blockkernel")[4] == "float32"
-    assert bench.parse_variant("float32+blockkernel-bf16")[4] == "bfloat16"
+        "int8", True, False, True, True)
+    assert bench.parse_variant("float32+sorted+bf16buf")[2]
 
 
 def test_variant_compute_dtype():
-    assert bench.variant_compute_dtype("float32+sorted+blockkernel") == "float32"
+    assert bench.variant_compute_dtype("float32+sorted") == "float32"
     assert bench.variant_compute_dtype("float32+sorted+bf16compute") == "bfloat16"
     # must be a '+'-separated tag, not a substring of the dtype part
     assert bench.variant_compute_dtype("bf16compute") == "float32"
 
 
 def test_roofline_refuses_impossible_numbers():
+    peaks = bench.device_peaks(H100)
     model = bench.roofline_model(262144, "float32", wire_bytes=0.0)
-    # round-1's retracted 362M ex/s implies >1 TB/s — must raise
+    # 2e9 ex/s at ~3 KB/example implies ~6 TB/s, over the 3.35 TB/s peak
     with pytest.raises(RuntimeError, match="physically impossible"):
-        bench.check_roofline(362_000_000, model, "test")
-    # the measured device capacities must pass
-    out = bench.check_roofline(35_851_238, model, "test")
+        bench.check_roofline(2_000_000_000, model, "test", peaks)
+    out = bench.check_roofline(35_851_238, model, "test", peaks)
     assert out["implied_gb_per_sec"] < out["hbm_peak_gb_per_sec"]
 
 
+def test_roofline_flop_bound_follows_compute_dtype():
+    """f32 towers are bounded by the TF32 peak, bf16 towers by the bf16 peak."""
+    peaks = bench.device_peaks(H100)
+    model = {"bytes_per_example": 1.0, "flops_per_example": 1e6}
+    eps = 700e6  # 700 TFLOP/s: over TF32's 495, under bf16's 989
+    with pytest.raises(RuntimeError, match="physically impossible"):
+        bench.check_roofline(eps, model, "f32", peaks, "float32")
+    out = bench.check_roofline(eps, model, "bf16", peaks, "bfloat16")
+    assert out["flops_peak_tflop_per_sec"] == 989.0
+
+
+def test_device_peaks_h100_data_sheet():
+    p = bench.device_peaks(H100)
+    assert p == {"bf16_flops": 989e12, "tf32_flops": 495e12,
+                 "f32_flops": 67e12, "hbm_bytes_per_s": 3.35e12}
+
+
+def test_roofline_records_the_card_beside_its_shares():
+    """Shares are of 700 W data-sheet peaks; the card's own limit is kept."""
+    card = "NVIDIA H100 80GB HBM3, 400.00 W"
+    peaks = {**bench.device_peaks(H100), "card": card}
+    model = bench.roofline_model(262144, "float32", wire_bytes=0.0)
+    out = bench.check_roofline(35_851_238, model, "test", peaks)
+    assert out["card"] == card
+    assert out["peaks_at_power_limit_w"] == 700
+    assert bench.check_roofline(35_851_238, model, "test",
+                                bench.device_peaks(H100))["card"] is None
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A10", ""])
+def test_device_peaks_refuses_unknown_kind(kind):
+    with pytest.raises(ValueError, match="no published peaks"):
+        bench.device_peaks(kind)
+
+
 def test_default_variant_list_parses():
-    default = ("float32+sorted+compact+delta+blockkernel,"
-               "float32+sorted+compact+delta+blockkernel-bf16+bf16compute,"
-               "float32+sorted+compact+delta,"
-               "float32+sorted+compact,float32+sorted,float32,"
-               "bfloat16+sorted+compact+delta,int8+sorted+compact+delta")
-    for spec_ in default.split(","):
-        dt, _, _, _, bsk, _ = bench.parse_variant(spec_)
+    for spec_ in bench.DEFAULT_HOT_LOOP_VARIANTS.split(","):
+        dt = bench.parse_variant(spec_)[0]
         assert dt in ("float32", "bfloat16", "int8")
-        assert bsk in ("off", "float32", "bfloat16")
         assert bench.variant_compute_dtype(spec_) in ("float32", "bfloat16")
-
-
-def test_persist_or_reference_latest(tmp_path):
-    """Complete records persist to BENCH_LATEST.json; incomplete (severe-wire)
-    records get a last_complete summary referencing the persisted one."""
-    p = str(tmp_path / "BENCH_LATEST.json")
-    complete = {
-        "value": 19.7e6, "vs_baseline": 731.0, "headline_dtype": "f32+x",
-        "variants": {"f32+x": {"examples_per_sec": 19.7e6}},
-        "from_disk": {"examples_per_sec": 9.7e6},
-        "device_step": {"examples_per_sec": 23.1e6},
-        "device_step_bf16": {"examples_per_sec": 35.8e6},
-    }
-    assert bench.record_is_complete(complete)
-    bench.persist_or_reference_latest(complete, p)
-    assert os.path.exists(p)
-    assert complete["recorded_at"]
-
-    severe = {"value": 23.0e6, "wire_bound_skipped": True, "variants": {},
-              "device_step": {"examples_per_sec": 23.0e6}}
-    assert not bench.record_is_complete(severe)
-    bench.persist_or_reference_latest(severe, p)
-    lc = severe["last_complete"]
-    assert lc["value"] == 19.7e6
-    assert lc["variants_examples_per_sec"] == {"f32+x": 19.7e6}
-    assert lc["device_step_bf16_examples_per_sec"] == 35.8e6
-    assert lc["from_disk_examples_per_sec"] == 9.7e6
-
-    # no BENCH_LATEST yet -> no reference, no crash
-    severe2 = {"value": 1.0, "wire_bound_skipped": True, "variants": {}}
-    bench.persist_or_reference_latest(severe2, str(tmp_path / "missing.json"))
-    assert "last_complete" not in severe2
-
-    # a complete-but-SLOWER run (congested wire) must NOT overwrite the
-    # faster record; it references it as last_complete instead
-    slower = dict(complete, value=3.1e6,
-                  variants={"f32+x": {"examples_per_sec": 3.1e6}})
-    slower.pop("recorded_at", None)
-    bench.persist_or_reference_latest(slower, p)
-    with open(p) as f:
-        kept = json.load(f)
-    assert kept["value"] == 19.7e6
-    assert slower["last_complete"]["value"] == 19.7e6
-
-    # a complete FASTER run does overwrite
-    faster = dict(complete, value=21.0e6)
-    faster.pop("recorded_at", None)
-    bench.persist_or_reference_latest(faster, p)
-    with open(p) as f:
-        kept = json.load(f)
-    assert kept["value"] == 21.0e6
-
-
-def test_leading_dip_detection():
-    from bench import leading_dip
-
-    # the VERDICT r3 weak-#7 shape: first two windows at 0.42x
-    assert leading_dip([8.83e6, 8.41e6, 20.1e6, 20.2e6, 19.9e6]) == 2
-    # one slow leader
-    assert leading_dip([9e6, 20.1e6, 20.2e6, 19.9e6, 20.0e6]) == 1
-    # steady runs are untouched
-    assert leading_dip([20.1e6, 20.2e6, 19.9e6, 20.0e6, 20.1e6]) == 0
-    # a SLOW TAIL is never excluded (only a prefix may be)
-    assert leading_dip([20.1e6, 20.2e6, 19.9e6, 8.0e6, 8.1e6]) == 0
-    # too few windows -> no exclusion
-    assert leading_dip([8e6, 20e6, 20e6]) == 0
-    # at least 3 steady windows must remain
-    assert leading_dip([8e6, 8e6, 20e6, 20e6]) == 1
-
-
-def test_leading_dip_requires_degraded_wire():
-    """A healthy-wire run never excludes leading windows: the dip mechanism
-    is prefetch fill at wire pace, which a healthy wire makes invisible —
-    excluding there would optimistically mask a genuine slowdown that
-    begins at run start (ADVICE r4)."""
-    from bench import leading_dip
-
-    dipped = [8.83e6, 8.41e6, 20.1e6, 20.2e6, 19.9e6]
-    assert leading_dip(dipped, wire_degraded=True) == 2
-    assert leading_dip(dipped, wire_degraded=False) == 0
-
-
-def test_promote_wire_proof_headline():
-    """In the degraded band (2-300 MB/s preflight) the committed headline
-    becomes the wire-proof device-step capacity; the wire-bound hot-loop
-    figure stays in the record as wire_headline (VERDICT r4 weak #1: the
-    r4 driver artifact's 8.19M at 12.6 MB/s hid a 23M device capacity)."""
-    rec = {"value": 8.19e6, "vs_baseline": 303.3,
-           "headline_dtype": "float32+sorted+compact+delta+blockkernel",
-           "variants": {"float32+sorted+compact+delta+blockkernel":
-                        {"examples_per_sec": 8.19e6}},
-           "device_step": {"examples_per_sec": 23.0e6, "step_ms": 11.4},
-           "from_disk": {"examples_per_sec": 5.0e6}}
-    bench.promote_wire_proof_headline(rec, degraded=True)
-    assert rec["value"] == 23.0e6
-    assert rec["headline_source"] == "device_step_wire_excluded"
-    assert rec["wire_headline"]["value"] == 8.19e6
-    assert "DEGRADED WIRE" in rec["note"]
-    assert bench.wire_value(rec) == 8.19e6  # persistence compares wire pace
-
-    # healthy wire: untouched
-    rec2 = {"value": 25.0e6, "vs_baseline": 926.0,
-            "device_step": {"examples_per_sec": 23.0e6}}
-    bench.promote_wire_proof_headline(rec2, degraded=False)
-    assert rec2["value"] == 25.0e6 and "wire_headline" not in rec2
-
-    # severe tier already device-derived: no double promotion
-    rec3 = {"value": 23.0e6, "wire_bound_skipped": True,
-            "device_step": {"examples_per_sec": 23.0e6}}
-    bench.promote_wire_proof_headline(rec3, degraded=True)
-    assert "wire_headline" not in rec3
-
-    # degraded but hot-loop somehow faster than device figure: keep it
-    rec4 = {"value": 30.0e6, "vs_baseline": 1111.0,
-            "device_step": {"examples_per_sec": 23.0e6}}
-    bench.promote_wire_proof_headline(rec4, degraded=True)
-    assert rec4["value"] == 30.0e6 and "wire_headline" not in rec4
-
-
-def test_promoted_record_does_not_displace_healthy_latest(tmp_path):
-    """BENCH_LATEST keeps the best WIRE-INCLUDED record: a degraded-band
-    run whose value was promoted to device capacity must not overwrite a
-    healthy-wire record on the strength of its wire-excluded number."""
-    p = str(tmp_path / "BENCH_LATEST.json")
-    healthy = {
-        "value": 19.9e6, "vs_baseline": 738.0, "headline_dtype": "f32+x",
-        "variants": {"f32+x": {"examples_per_sec": 19.9e6}},
-        "from_disk": {"examples_per_sec": 9.7e6},
-        "device_step": {"examples_per_sec": 23.0e6},
-    }
-    bench.persist_or_reference_latest(healthy, p)
-    promoted = {
-        "value": 8.19e6, "vs_baseline": 303.0, "headline_dtype": "f32+x",
-        "variants": {"f32+x": {"examples_per_sec": 8.19e6}},
-        "from_disk": {"examples_per_sec": 5.0e6},
-        "device_step": {"examples_per_sec": 23.5e6},
-    }
-    bench.promote_wire_proof_headline(promoted, degraded=True)
-    assert promoted["value"] == 23.5e6  # > healthy's 19.9M, but wire-excluded
-    bench.persist_or_reference_latest(promoted, p)
-    with open(p) as f:
-        kept = json.load(f)
-    assert kept["value"] == 19.9e6  # healthy record survives
-    assert promoted["last_complete"]["value"] == 19.9e6
-
-
-def test_compact_record_carries_headline_source():
-    record = {
-        "metric": "m", "value": 23.0e6, "unit": "examples/s",
-        "vs_baseline": 851.0, "headline_source": "device_step_wire_excluded",
-        "wire_headline": {"value": 8.19e6},
-        "h2d_preflight": {"mb_per_s": 24.0, "degraded": True},
-    }
-    out = bench.compact_record(record)
-    assert out["headline_source"] == "device_step_wire_excluded"
-    assert out["wire_headline_value"] == 8.19e6
+    for spec_ in bench.DEFAULT_DEVICE_VARIANTS.values():
+        assert bench.parse_variant(spec_)[0] in ("float32", "int8")
 
 
 def test_compact_record_shape():
-    """The stdout line must stay parseable within the driver's capture
-    window: scalars only, no window arrays/rooflines (ADVICE r3)."""
-    import json
-
-    from bench import compact_record
-
+    """The stdout line stays compact: scalars and the device only, no window
+    arrays or rooflines."""
     record = {
-        "metric": "two_tower_train_examples_per_sec_1chip",
+        "metric": "two_tower_train_examples_per_sec_1gpu",
         "value": 19940000.0, "unit": "examples/s", "vs_baseline": 738.5,
+        "device": {"platform": "gpu", "kind": H100, "count": 1},
         "batch_size": 262144, "headline_dtype": "float32+sorted",
-        "h2d_preflight": {"mb_per_s": 13.4, "degraded": True},
         "variants": {
             "float32+sorted": {
                 "examples_per_sec": 19940000.0,
                 "windows_examples_per_sec": [1.0] * 10,
                 "window_losses": [0.7] * 10,
-                "roofline": {"hbm_utilization": 0.1},
-                "warmup_windows_excluded": 2,
+                "roofline": {"hbm_share_of_peak": 0.1},
             },
         },
         "device_step": {"examples_per_sec": 23220000.0, "step_ms": 11.3,
@@ -239,33 +110,14 @@ def test_compact_record_shape():
         "from_disk": {"examples_per_sec": 12000000.0,
                       "wire_cache": {"examples_per_sec": 15000000.0}},
     }
-    out = compact_record(record)
+    out = bench.compact_record(record)
     line = json.dumps(out)
     assert len(line) < 2000, len(line)
     assert out["value"] == 19940000.0
+    assert out["device"]["kind"] == H100
     assert out["variants_examples_per_sec"]["float32+sorted"] == 19940000.0
-    assert out["warmup_windows_excluded"] == 2
     assert out["device_step_softmax"]["batch_size"] == 65536
     assert "batch_size" not in out["device_step"]  # same as headline bs
     assert out["wire_cache_examples_per_sec"] == 15000000.0
     assert "windows_examples_per_sec" not in line
     assert "roofline" not in line
-
-
-def test_compact_record_int8_crossover_summary():
-    record = {
-        "metric": "m", "value": 1.0, "unit": "x", "vs_baseline": 1.0,
-        "int8_crossover": {"rows": [
-            {"variant": "f32+sorted", "num_users": 8000000, "step_ms": 53.2},
-            {"variant": "f32+sorted+blockkernel", "num_users": 8000000,
-             "step_ms": 86.0},
-            {"variant": "int8+sorted+blockkernel", "num_users": 8000000,
-             "step_ms": 83.1},
-            {"variant": "int8+sorted", "num_users": 20000000,
-             "error": "compile OOM"},
-        ]},
-    }
-    out = bench.compact_record(record)
-    assert out["int8_crossover_best_step_ms"] == {
-        "8M_f32": 53.2, "8M_int8": 83.1}
-    assert len(json.dumps(out)) < 2000

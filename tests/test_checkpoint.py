@@ -6,17 +6,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.data.loader import StreamLoader
-from two_tower_recommender_model_tpu.data.shards import write_dataset
-from two_tower_recommender_model_tpu.parallel import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.data.loader import StreamLoader
+from two_tower_recommender_model.data.shards import write_dataset
+from two_tower_recommender_model.parallel import (
     make_mesh, plan_sharding, shard_train_state,
 )
-from two_tower_recommender_model_tpu.parallel.planner import ROW_SHARDED
-from two_tower_recommender_model_tpu.train.step import create_train_state, make_train_step
-from two_tower_recommender_model_tpu.utils.checkpoint import Checkpointer, export_model, load_model
-from two_tower_recommender_model_tpu.utils.tracking import ExperimentLogger, latest_run, list_runs
+from two_tower_recommender_model.parallel.planner import ROW_SHARDED
+from two_tower_recommender_model.train.step import create_train_state, make_train_step
+from two_tower_recommender_model.utils.checkpoint import Checkpointer, export_model, load_model
+from two_tower_recommender_model.utils.tracking import ExperimentLogger, latest_run, list_runs
 
 
 @pytest.fixture

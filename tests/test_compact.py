@@ -12,20 +12,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.data.compact import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.data.compact import (
     CompactFeaturizer,
     CompactScheme,
     batch_from_compact,
     compact_from_packed,
     make_compact_train_step,
 )
-from two_tower_recommender_model_tpu.data.device_featurizer import (
+from two_tower_recommender_model.data.device_featurizer import (
     PackedFeaturizer,
     unpack_batch,
 )
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model.train.step import (
     create_train_state,
     make_multi_step,
     make_train_step,
@@ -423,7 +423,7 @@ def test_delta_segments_decode_bit_identical(rng, pack_label):
                                  pack_label=pack_label))
     # assemble like make_array_from_process_local_data: wire/rem concat on
     # the batch axis, sidecars+labels concat on axis 0
-    from two_tower_recommender_model_tpu.data.compact import CompactBatch
+    from two_tower_recommender_model.data.compact import CompactBatch
     glob = CompactBatch(
         wire=np.concatenate([c.wire for c in cbs], axis=-1),
         rem=(np.concatenate([c.rem for c in cbs], axis=-1)

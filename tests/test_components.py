@@ -8,26 +8,26 @@ import optax
 import pandas as pd
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.data.parquet import parquet_batches, write_parquet_dataset
-from two_tower_recommender_model_tpu.data.text_features import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.data.parquet import parquet_batches, write_parquet_dataset
+from two_tower_recommender_model.data.text_features import (
     build_product_text_features,
     concat_text_fields,
     cosine_similarity,
     embed_text,
 )
-from two_tower_recommender_model_tpu.models.concat_mlp import init_ranker_params, ranker_forward
-from two_tower_recommender_model_tpu.models.losses import bce_with_logits
-from two_tower_recommender_model_tpu.parallel.launch import (
+from two_tower_recommender_model.models.concat_mlp import init_ranker_params, ranker_forward
+from two_tower_recommender_model.models.losses import bce_with_logits
+from two_tower_recommender_model.parallel.launch import (
     TrainingMethod,
     devices_for,
     global_batch_slice,
     host_info,
     per_host_loader_slice,
 )
-from two_tower_recommender_model_tpu.train.optimizer import dense_optimizer
-from two_tower_recommender_model_tpu.utils.profiling import StepTimer, device_memory_stats
+from two_tower_recommender_model.train.optimizer import dense_optimizer
+from two_tower_recommender_model.utils.profiling import StepTimer, device_memory_stats
 
 
 @pytest.fixture
@@ -182,8 +182,8 @@ def test_launch_helpers():
 
 
 def test_ranker_train_step_api(mcfg, rng):
-    from two_tower_recommender_model_tpu.models.concat_mlp import make_ranker_train_step
-    from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
+    from two_tower_recommender_model.models.concat_mlp import make_ranker_train_step
+    from two_tower_recommender_model.train.pipeline import prefetch_to_device
 
     step, init_fn = make_ranker_train_step(mcfg, learning_rate=1e-2, dropout_rate=0.2,
                                            donate=False)
@@ -199,7 +199,7 @@ def test_ranker_train_step_api(mcfg, rng):
 
 
 def test_profile_trace_writes(tmp_path):
-    from two_tower_recommender_model_tpu.utils.profiling import profile_trace
+    from two_tower_recommender_model.utils.profiling import profile_trace
 
     with profile_trace(str(tmp_path / "trace")):
         _ = jnp.ones((64, 64)) @ jnp.ones((64, 64))
@@ -211,10 +211,10 @@ def test_profile_trace_writes(tmp_path):
 
 
 def test_batch_predict_parquet_input(tmp_path, rng):
-    from two_tower_recommender_model_tpu.models.two_tower import init_params
-    from two_tower_recommender_model_tpu.serving import Scorer
-    from two_tower_recommender_model_tpu.serving.batch import batch_predict
-    from two_tower_recommender_model_tpu.data.shards import ShardedDataset
+    from two_tower_recommender_model.models.two_tower import init_params
+    from two_tower_recommender_model.serving import Scorer
+    from two_tower_recommender_model.serving.batch import batch_predict
+    from two_tower_recommender_model.data.shards import ShardedDataset
 
     mcfg2 = cfg_lib.two_tower_model_config(num_users=50, num_items=30, embedding_dim=8)
     scorer = Scorer(mcfg2, init_params(jax.random.key(0), mcfg2))
@@ -230,8 +230,8 @@ def test_batch_predict_parquet_input(tmp_path, rng):
 
 
 def test_loader_column_projection(tmp_path, rng):
-    from two_tower_recommender_model_tpu.data.loader import StreamLoader
-    from two_tower_recommender_model_tpu.data.shards import write_dataset
+    from two_tower_recommender_model.data.loader import StreamLoader
+    from two_tower_recommender_model.data.shards import write_dataset
 
     write_dataset(str(tmp_path / "ds"), {"a": np.arange(100), "b": np.arange(100) * 2,
                                          "label": np.zeros(100)}, rows_per_shard=40)
@@ -244,7 +244,7 @@ def test_precomputed_embeddings_roundtrip(tmp_path):
     """(id -> embedding) files in both ai_query-output shapes (.npz/.parquet)
     round-trip into the dense [num_ids+1, D] table (row 0 = pad), with
     validation on duplicates/sentinel-0/missing columns."""
-    from two_tower_recommender_model_tpu.data.text_features import (
+    from two_tower_recommender_model.data.text_features import (
         load_precomputed_embeddings,
         save_precomputed_embeddings,
     )
@@ -293,7 +293,7 @@ def test_xgboost_baseline_harness(tmp_path):
                          runs_root=str(tmp_path / "runs"))
     assert out["valid_auroc"] > 0.6  # learnable signal, learned
     assert out["fit_seconds"] > 0 and out["rows_per_sec"] > 0
-    from two_tower_recommender_model_tpu.utils.tracking import latest_run
+    from two_tower_recommender_model.utils.tracking import latest_run
 
     run = latest_run(str(tmp_path / "runs"))
     assert run.params["n_estimators"] == 15

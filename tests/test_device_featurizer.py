@@ -6,21 +6,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.data.device_featurizer import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.data.device_featurizer import (
     PackedFeaturizer,
     make_packed_eval_step,
     make_packed_train_step,
     unpack_batch,
 )
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model.train.step import (
     create_train_state,
     eval_state_init,
     make_eval_step,
     make_train_step,
 )
-from two_tower_recommender_model_tpu.models.metrics import auroc_compute
+from two_tower_recommender_model.models.metrics import auroc_compute
 
 
 @pytest.fixture
@@ -158,8 +158,8 @@ def test_pack_label_rejects_huge_tables():
 
 def test_multi_step_scan_matches_sequential(mcfg, rng):
     """K batches through one lax.scan dispatch == K sequential steps."""
-    from two_tower_recommender_model_tpu.data.device_featurizer import unpack_batch
-    from two_tower_recommender_model_tpu.train.step import make_multi_step, stack_batches
+    from two_tower_recommender_model.data.device_featurizer import unpack_batch
+    from two_tower_recommender_model.train.step import make_multi_step, stack_batches
 
     tcfg = cfg_lib.TrainConfig()
     ds = SyntheticClickstream(100, 60, seed=2)
@@ -186,7 +186,7 @@ def test_multi_step_scan_matches_sequential(mcfg, rng):
 
 
 def test_prefetch_multiworker_order_preserved(mcfg, rng):
-    from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
+    from two_tower_recommender_model.train.pipeline import prefetch_to_device
 
     feat = Featurizer(mcfg)
     ds = SyntheticClickstream(100, 60, seed=0)
@@ -199,8 +199,8 @@ def test_prefetch_multiworker_order_preserved(mcfg, rng):
 
 
 def test_macro_stream_groups_and_trains(mcfg):
-    from two_tower_recommender_model_tpu.train.pipeline import macro_stream, prefetch_to_device
-    from two_tower_recommender_model_tpu.train.step import make_multi_step
+    from two_tower_recommender_model.train.pipeline import macro_stream, prefetch_to_device
+    from two_tower_recommender_model.train.step import make_multi_step
 
     tcfg = cfg_lib.TrainConfig()
     ds = SyntheticClickstream(100, 60, seed=3)
@@ -221,8 +221,8 @@ def test_macro_stream_groups_and_trains(mcfg):
 def test_train_one_epoch_packed_matches_sequential(mcfg):
     """train_one_epoch_packed (worker-pool macro assembly) == sequential
     per-batch training over the same stream."""
-    from two_tower_recommender_model_tpu.train.loop import train_one_epoch_packed
-    from two_tower_recommender_model_tpu.train.step import make_multi_step
+    from two_tower_recommender_model.train.loop import train_one_epoch_packed
+    from two_tower_recommender_model.train.step import make_multi_step
 
     tcfg = cfg_lib.TrainConfig()
     ds = SyntheticClickstream(100, 60, seed=5)
@@ -253,9 +253,9 @@ def test_train_one_epoch_packed_full_semantics(mcfg):
     partial macro trained through tail_step (not dropped), mid-epoch
     validation fires at the validation_freq cadence — and the result equals
     sequential per-batch training over the same 9 batches."""
-    from two_tower_recommender_model_tpu.data import Featurizer
-    from two_tower_recommender_model_tpu.train.loop import train_one_epoch_packed
-    from two_tower_recommender_model_tpu.train.step import make_multi_step
+    from two_tower_recommender_model.data import Featurizer
+    from two_tower_recommender_model.train.loop import train_one_epoch_packed
+    from two_tower_recommender_model.train.step import make_multi_step
 
     tcfg = cfg_lib.TrainConfig(validation_freq=3, limit_train_batches=9,
                                limit_val_batches=2)
@@ -325,7 +325,7 @@ def test_sorted_feature_training_matches_unsorted(mcfg, rng):
     """sorted_feature + sorted featurizer == plain training (same batches):
     row order within a batch is loss-invariant and the hinted scatter computes
     the same Adagrad update."""
-    from two_tower_recommender_model_tpu.data import SyntheticClickstream
+    from two_tower_recommender_model.data import SyntheticClickstream
 
     ds = SyntheticClickstream(100, 60, seed=11)
     cols_list = [ds.sample(128, start=i) for i in range(4)]
@@ -352,7 +352,7 @@ def test_sorted_feature_training_matches_unsorted(mcfg, rng):
 
 
 def test_sorted_feature_validation():
-    from two_tower_recommender_model_tpu.train.step import validate_sorted_feature
+    from two_tower_recommender_model.train.step import validate_sorted_feature
 
     mcfg = cfg_lib.two_tower_model_config(num_users=50, num_items=30)
     assert validate_sorted_feature(mcfg, cfg_lib.TrainConfig()) is None

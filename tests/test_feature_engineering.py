@@ -5,7 +5,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from two_tower_recommender_model_tpu.data.feature_engineering import (
+from two_tower_recommender_model.data.feature_engineering import (
     assert_user_coverage,
     build_positive_pairs,
     index_ids,
@@ -14,7 +14,7 @@ from two_tower_recommender_model_tpu.data.feature_engineering import (
     splits_to_columns,
     union_pos_neg,
 )
-from two_tower_recommender_model_tpu.data.ingest import build_order_detail
+from two_tower_recommender_model.data.ingest import build_order_detail
 
 
 @pytest.fixture

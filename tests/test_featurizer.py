@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data.featurizer import Featurizer
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data.featurizer import Featurizer
 
 
 def reference_transform(batch, cat_cols, num_embeddings_per_feature):

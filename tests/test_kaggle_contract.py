@@ -1,4 +1,4 @@
-"""Kaggle acquisition contract (VERDICT r2 missing #2).
+"""Kaggle acquisition contract.
 
 The live download can't run here (no network/credentials), so these tests pin
 everything AROUND it: fixture CSVs carry the real Kaggle dataset's exact
@@ -80,7 +80,7 @@ TABLE_OF = {
 def test_ingest_schemas_parse_kaggle_fixtures(tmp_path):
     """Every declared ingest schema parses the real-header fixture, with the
     declared dtypes, NaN first-order gaps, and quoted product names intact."""
-    from two_tower_recommender_model_tpu.data.ingest import (
+    from two_tower_recommender_model.data.ingest import (
         INSTACART_SCHEMAS,
         read_csv_table,
     )
@@ -105,7 +105,7 @@ def test_ingest_schemas_parse_kaggle_fixtures(tmp_path):
 def test_ingest_rejects_wrong_header(tmp_path):
     with open(tmp_path / "orders.csv", "w") as f:
         f.write("order_id,user,eval_set\n1,1,prior\n")
-    from two_tower_recommender_model_tpu.data.ingest import read_csv_table
+    from two_tower_recommender_model.data.ingest import read_csv_table
 
     with pytest.raises(ValueError, match="missing columns"):
         read_csv_table(str(tmp_path / "orders.csv"), "orders")
@@ -114,7 +114,7 @@ def test_ingest_rejects_wrong_header(tmp_path):
 def test_replica_headers_match_kaggle(tmp_path):
     """The schema-faithful replica must emit the EXACT Kaggle header lines —
     the contract that keeps replica-validated code valid on organic data."""
-    from two_tower_recommender_model_tpu.data.replica import write_instacart_replica
+    from two_tower_recommender_model.data.replica import write_instacart_replica
 
     write_instacart_replica(str(tmp_path), num_users=30, num_products=20, seed=0)
     for name, header in KAGGLE_HEADERS.items():
@@ -160,7 +160,7 @@ def test_fetch_kaggle_arm_end_to_end(tmp_path):
         assert (out / name).exists(), name
 
     # downloaded CSVs flow into the ingest layer
-    from two_tower_recommender_model_tpu.data.ingest import read_csv_table
+    from two_tower_recommender_model.data.ingest import read_csv_table
 
     df = read_csv_table(str(out / "orders.csv"), "orders")
     assert len(df) == 3

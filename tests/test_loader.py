@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu.data.loader import StreamLoader
-from two_tower_recommender_model_tpu.data.shards import ShardedDataset, write_dataset
+from two_tower_recommender_model.data.loader import StreamLoader
+from two_tower_recommender_model.data.shards import ShardedDataset, write_dataset
 
 
 @pytest.fixture

@@ -4,8 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 
-from two_tower_recommender_model_tpu.models.losses import (
+from two_tower_recommender_model.models.losses import (
     bce_with_logits,
     in_batch_sampled_softmax,
     weighted_bce_with_logits,
@@ -90,7 +91,7 @@ def test_chunked_sampled_softmax_matches_dense():
     import jax
     import jax.numpy as jnp
 
-    from two_tower_recommender_model_tpu.models.losses import (
+    from two_tower_recommender_model.models.losses import (
         _chunked_sampled_softmax,
         in_batch_sampled_softmax,
     )
@@ -124,7 +125,7 @@ def test_chunked_sampled_softmax_no_ids_no_logq():
     import jax
     import jax.numpy as jnp
 
-    from two_tower_recommender_model_tpu.models.losses import (
+    from two_tower_recommender_model.models.losses import (
         _chunked_sampled_softmax,
         in_batch_sampled_softmax,
     )
@@ -140,9 +141,72 @@ def test_chunked_sampled_softmax_no_ids_no_logq():
 
 
 def test_auto_row_chunk_policy():
-    from two_tower_recommender_model_tpu.models.losses import _auto_row_chunk
+    from two_tower_recommender_model.models.losses import _auto_row_chunk
 
     assert _auto_row_chunk(1024) is None           # small: dense
     assert _auto_row_chunk(8192) == 2048           # 16.7M-element blocks
     assert _auto_row_chunk(262144) == 64
     assert _auto_row_chunk(5000) == 8              # non-power-of-2: small divisor
+
+
+def _sampled_softmax_f64(q, c, labels, item_ids, log_q, temperature, rows=512):
+    """float64 in-batch sampled softmax with its gradients, in row blocks so
+    the [B, B] score matrix never exists whole. Returns (loss, dq, dc)."""
+    q, c = q.astype(np.float64), c.astype(np.float64)
+    b = q.shape[0]
+    w = labels.astype(np.float64)
+    wsum = max(w.sum(), 1.0)
+    tot, dq, dc = 0.0, np.zeros_like(q), np.zeros_like(c)
+    for lo in range(0, b, rows):
+        hi = min(lo + rows, b)
+        s = q[lo:hi] @ c.T / temperature
+        if log_q is not None:
+            s = s - log_q[None, :].astype(np.float64)
+        eye = np.arange(lo, hi)[:, None] == np.arange(b)[None, :]
+        if item_ids is not None:
+            s = np.where((item_ids[lo:hi, None] == item_ids[None, :]) & ~eye, -np.inf, s)
+        mx = s.max(axis=1, keepdims=True)
+        p = np.exp(s - mx)
+        lse = np.log(p.sum(axis=1)) + mx[:, 0]
+        p /= p.sum(axis=1, keepdims=True)
+        tot += ((lse - s[eye]) * w[lo:hi]).sum()
+        ds = (p - eye) * (w[lo:hi] / wsum)[:, None] / temperature
+        dq[lo:hi] = ds @ c
+        dc += ds.T @ q[lo:hi]
+    return tot / wsum, dq, dc
+
+
+@pytest.mark.parametrize("b", [4608, 4099])  # chunked scan; padded scan (prime b)
+@pytest.mark.parametrize("d,temperature", [(16, 1.0), (5, 0.7)])
+@pytest.mark.parametrize("use_ids,use_logq",
+                         [(False, False), (True, False), (False, True), (True, True)])
+def test_scan_sampled_softmax_oracle(b, d, temperature, use_ids, use_logq):
+    """Past 4096 rows the loss runs as a scan over [R, B] row chunks (or, for
+    a batch with no usable divisor, over a padded batch whose pad columns are
+    masked); value and both gradients match a float64 dense reference, with
+    logQ correction, accidental-hit masking, unlabeled rows, an odd dim and a
+    temperature."""
+    from two_tower_recommender_model.models.losses import _auto_row_chunk
+
+    assert (_auto_row_chunk(b) is None) == (b == 4099)
+    rng = np.random.default_rng(b * 10 + d)
+    q = rng.normal(size=(b, d)).astype(np.float32) * 0.5
+    c = rng.normal(size=(b, d)).astype(np.float32) * 0.5
+    labels = (rng.random(b) < 0.8).astype(np.int32)
+    item_ids = rng.integers(0, 300, b).astype(np.int32) if use_ids else None
+    log_q = (rng.normal(size=b) * 0.3).astype(np.float32) if use_logq else None
+
+    def loss(q_, c_):
+        return in_batch_sampled_softmax(
+            q_, c_, jnp.asarray(labels),
+            None if item_ids is None else jnp.asarray(item_ids),
+            None if log_q is None else jnp.asarray(log_q),
+            temperature=temperature)
+
+    val, (dq, dc) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))(
+        jnp.asarray(q), jnp.asarray(c))
+    want, want_dq, want_dc = _sampled_softmax_f64(
+        q, c, labels, item_ids, log_q, temperature)
+    np.testing.assert_allclose(float(val), want, rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(dq), want_dq, rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(np.asarray(dc), want_dc, rtol=1e-4, atol=1e-7)

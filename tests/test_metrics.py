@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from two_tower_recommender_model_tpu.models.metrics import (
+from two_tower_recommender_model.models.metrics import (
     auroc_compute,
     auroc_init,
     auroc_merge,

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data.featurizer import Featurizer
-from two_tower_recommender_model_tpu.models import two_tower as tt
-from two_tower_recommender_model_tpu.models.mlp import apply_mlp, init_mlp
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data.featurizer import Featurizer
+from two_tower_recommender_model.models import two_tower as tt
+from two_tower_recommender_model.models.mlp import apply_mlp, init_mlp
 
 
 @pytest.fixture

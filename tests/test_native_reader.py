@@ -6,14 +6,14 @@ import time
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu.data.shards import (
+from two_tower_recommender_model.data.shards import (
     ShardedDataset,
     read_shard,
     write_dataset,
     write_shard,
 )
-from two_tower_recommender_model_tpu.native.build import build_ttrs_reader
-from two_tower_recommender_model_tpu.native.ttrs import (
+from two_tower_recommender_model.native.build import build_ttrs_reader
+from two_tower_recommender_model.native.ttrs import (
     NativeShardReader,
     native_available,
     native_read_shard,

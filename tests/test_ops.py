@@ -4,12 +4,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from two_tower_recommender_model_tpu.ops.embedding_ops import (
+from two_tower_recommender_model.ops.embedding_ops import (
     pooled_lookup,
     row_grads_from_pooled,
     scatter_add_rows,
 )
-from two_tower_recommender_model_tpu.ops.topk import chunked_topk
+from two_tower_recommender_model.ops.topk import chunked_topk
 
 
 def _rand(rng, *shape):

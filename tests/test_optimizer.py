@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu.train.optimizer import (
+from two_tower_recommender_model.train.optimizer import (
     dense_rowwise_adagrad,
     row_grad_flatten,
     sparse_rowwise_adagrad,

@@ -9,19 +9,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import SyntheticClickstream
-from two_tower_recommender_model_tpu.data.device_featurizer import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import SyntheticClickstream
+from two_tower_recommender_model.data.device_featurizer import (
     PackedFeaturizer,
     unpack_batch,
 )
-from two_tower_recommender_model_tpu.data.loader import StreamLoader
-from two_tower_recommender_model_tpu.data.prepacked import (
+from two_tower_recommender_model.data.loader import StreamLoader
+from two_tower_recommender_model.data.prepacked import (
     PrepackedFeaturizer,
     pack_dataset,
 )
-from two_tower_recommender_model_tpu.data.shards import ShardedDataset, read_shard, write_dataset
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model.data.shards import ShardedDataset, read_shard, write_dataset
+from two_tower_recommender_model.train.step import (
     create_train_state,
     make_multi_step,
     make_train_step,

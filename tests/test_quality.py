@@ -7,12 +7,12 @@ import jax
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.evaluation.retrieval import evaluate_retrieval
-from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
-from two_tower_recommender_model_tpu.train.loop import evaluate
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.evaluation.retrieval import evaluate_retrieval
+from two_tower_recommender_model.train.pipeline import prefetch_to_device
+from two_tower_recommender_model.train.loop import evaluate
+from two_tower_recommender_model.train.step import (
     create_train_state,
     make_eval_step,
     make_train_step,
@@ -56,8 +56,8 @@ def _numpy_init_state(mcfg, tcfg, seed=7):
     """Params from numpy RNG: jax.random output varies with which backend
     plugins are registered, so goldens pin a backend-independent init."""
     import jax.numpy as jnp
-    from two_tower_recommender_model_tpu.train.step import TrainState
-    from two_tower_recommender_model_tpu.train import optimizer as opt_lib
+    from two_tower_recommender_model.train.step import TrainState
+    from two_tower_recommender_model.train import optimizer as opt_lib
 
     rng = np.random.default_rng(seed)
     tables = {}
@@ -76,7 +76,7 @@ def _numpy_init_state(mcfg, tcfg, seed=7):
             }
             fan = out
         return params
-    from two_tower_recommender_model_tpu.models.two_tower import tower_in_dim
+    from two_tower_recommender_model.models.two_tower import tower_in_dim
     dense_params = {
         "query_tower": mlp(tower_in_dim(mcfg, mcfg.query_tower), mcfg.query_tower.layer_sizes),
         "candidate_tower": mlp(tower_in_dim(mcfg, mcfg.candidate_tower),
@@ -127,7 +127,7 @@ GOLDEN = {
 
 def test_bfloat16_compute_close_to_f32():
     """compute_dtype=bfloat16 runs and stays numerically close over a short
-    train (params remain f32; MXU work in bf16)."""
+    train (params remain f32; tower matmuls in bf16)."""
     results = {}
     for cd in ("float32", "bfloat16"):
         mcfg = cfg_lib.two_tower_model_config(num_users=80, num_items=40, embedding_dim=8,

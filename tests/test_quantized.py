@@ -7,16 +7,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.ops.quantized import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.ops.quantized import (
     QuantizedTable,
     dequantize_table,
     quantize_table,
     quantized_pooled_lookup,
 )
-from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
-from two_tower_recommender_model_tpu.train.step import create_train_state, make_train_step
+from two_tower_recommender_model.train.pipeline import prefetch_to_device
+from two_tower_recommender_model.train.step import create_train_state, make_train_step
 
 
 def test_quantize_roundtrip_error_bound(rng):
@@ -68,8 +68,8 @@ def test_int8_training_tracks_f32():
 
 
 def test_int8_export_dequantizes(tmp_path):
-    from two_tower_recommender_model_tpu.serving import load_scorer
-    from two_tower_recommender_model_tpu.utils.checkpoint import export_model
+    from two_tower_recommender_model.serving import load_scorer
+    from two_tower_recommender_model.utils.checkpoint import export_model
 
     mcfg = dataclasses.replace(
         cfg_lib.two_tower_model_config(50, 30, 8, (16, 8)), table_dtype="int8")
@@ -82,8 +82,8 @@ def test_int8_export_dequantizes(tmp_path):
 
 def test_int8_column_sharded_guard():
     """Column sharding is incompatible with per-row scales; clear error."""
-    from two_tower_recommender_model_tpu.parallel import make_mesh, plan_sharding, shard_train_state
-    from two_tower_recommender_model_tpu.parallel.planner import COLUMN_SHARDED
+    from two_tower_recommender_model.parallel import make_mesh, plan_sharding, shard_train_state
+    from two_tower_recommender_model.parallel.planner import COLUMN_SHARDED
     import pytest
 
     mcfg = dataclasses.replace(
@@ -102,11 +102,11 @@ def test_int8_column_sharded_guard():
 
 def test_int8_row_sharded_matches_single_device():
     """int8 tables row-sharded over 8 devices == single-device int8 training."""
-    from two_tower_recommender_model_tpu.parallel import (
+    from two_tower_recommender_model.parallel import (
         batch_sharding, make_mesh, make_sharded_train_step, plan_sharding,
         shard_train_state)
-    from two_tower_recommender_model_tpu.parallel.planner import ROW_SHARDED
-    from two_tower_recommender_model_tpu.parallel.sharded import unshard_train_state
+    from two_tower_recommender_model.parallel.planner import ROW_SHARDED
+    from two_tower_recommender_model.parallel.sharded import unshard_train_state
     import jax
 
     mcfg = dataclasses.replace(
@@ -146,7 +146,7 @@ def test_quantized_dense_sorted_hint_identical(rng):
     different scatter scheduling) — the int8 arm of DESIGN §6c."""
     import jax.numpy as jnp
 
-    from two_tower_recommender_model_tpu.ops.quantized import (
+    from two_tower_recommender_model.ops.quantized import (
         quantize_table,
         quantized_dense_rowwise_adagrad,
     )
@@ -169,7 +169,7 @@ def test_gather_int8_rows_bitcast_identity():
     """The int32-packed gather is byte-identical to the direct int8 take,
     including 2D id arrays and the D % 4 != 0 fallback."""
     import numpy as np
-    from two_tower_recommender_model_tpu.ops.quantized import gather_int8_rows
+    from two_tower_recommender_model.ops.quantized import gather_int8_rows
 
     rng = np.random.default_rng(0)
     vals = jnp.asarray(rng.integers(-127, 128, size=(37, 8), dtype=np.int8))
@@ -189,7 +189,7 @@ def test_gather_int8_rows_bitcast_identity():
 def test_gather_int8_rows_scales_fused_identity():
     """The packed rows+scale gather returns byte-identical values and scales."""
     import numpy as np
-    from two_tower_recommender_model_tpu.ops.quantized import (
+    from two_tower_recommender_model.ops.quantized import (
         gather_int8_rows_scales,
     )
 
@@ -214,9 +214,9 @@ def test_big_int8_table_inits_without_f32_intermediate(monkeypatch):
     table): lower the threshold so the path runs at test scale, and check
     the state is a valid QuantizedTable with in-bounds values and per-row
     absmax scales matching a dequantize-requantize round trip."""
-    import two_tower_recommender_model_tpu.models.two_tower as tt
-    from two_tower_recommender_model_tpu import config as cfg_lib
-    from two_tower_recommender_model_tpu.train.step import create_train_state
+    import two_tower_recommender_model.models.two_tower as tt
+    from two_tower_recommender_model import config as cfg_lib
+    from two_tower_recommender_model.train.step import create_train_state
 
     monkeypatch.setattr(tt, "BIG_INT8_INIT_ROWS", 500)
     mcfg = cfg_lib.two_tower_model_config(num_users=1200, num_items=60,
@@ -242,11 +242,11 @@ def test_packed_storage_matches_unpacked_bitwise(monkeypatch):
     tables must be bitwise identical to the unpacked s8 format (gathers
     return identical rows; the requant math is shared), across several
     steps and through the forward/eval path."""
-    import two_tower_recommender_model_tpu.ops.quantized as q
-    import two_tower_recommender_model_tpu.models.two_tower as tt
-    from two_tower_recommender_model_tpu import config as cfg_lib
-    from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-    from two_tower_recommender_model_tpu.train.step import (
+    import two_tower_recommender_model.ops.quantized as q
+    import two_tower_recommender_model.models.two_tower as tt
+    from two_tower_recommender_model import config as cfg_lib
+    from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+    from two_tower_recommender_model.train.step import (
         create_train_state,
         make_train_step,
     )
@@ -284,7 +284,7 @@ def test_packed_storage_matches_unpacked_bitwise(monkeypatch):
         np.asarray(dequantize_table(pk[0].tables["t_user_id"])),
         np.asarray(dequantize_table(up[0].tables["t_user_id"])))
     # identical raw bytes, not just dequantized values
-    from two_tower_recommender_model_tpu.ops.quantized import unpack_int8_values
+    from two_tower_recommender_model.ops.quantized import unpack_int8_values
 
     np.testing.assert_array_equal(
         np.asarray(unpack_int8_values(pk[0].tables["t_user_id"].values, 16)),
@@ -295,12 +295,12 @@ def test_packed_storage_matches_unpacked_bitwise(monkeypatch):
 def test_packed_storage_rejected_by_sharded_state(monkeypatch):
     import pytest
 
-    import two_tower_recommender_model_tpu.ops.quantized as q
-    import two_tower_recommender_model_tpu.models.two_tower as tt
-    from two_tower_recommender_model_tpu import config as cfg_lib
-    from two_tower_recommender_model_tpu.parallel import (
+    import two_tower_recommender_model.ops.quantized as q
+    import two_tower_recommender_model.models.two_tower as tt
+    from two_tower_recommender_model import config as cfg_lib
+    from two_tower_recommender_model.parallel import (
         make_mesh, plan_sharding, shard_train_state)
-    from two_tower_recommender_model_tpu.train.step import create_train_state
+    from two_tower_recommender_model.train.step import create_train_state
 
     monkeypatch.setattr(tt, "BIG_INT8_INIT_ROWS", 500)
     monkeypatch.setattr(q, "PACKED_STORAGE_MIN_ROWS", 500)
@@ -317,11 +317,11 @@ def test_packed_checkpoint_and_export_roundtrip(tmp_path, monkeypatch):
     """Packed tables must survive the orbax checkpoint round trip (the
     `packed` flag is pytree aux data, values stay int32 words) and export
     to the portable f32 saved-model through dequantize_table."""
-    import two_tower_recommender_model_tpu.ops.quantized as q
-    import two_tower_recommender_model_tpu.models.two_tower as tt
-    from two_tower_recommender_model_tpu import config as cfg_lib
-    from two_tower_recommender_model_tpu.train.step import create_train_state
-    from two_tower_recommender_model_tpu.utils.checkpoint import (
+    import two_tower_recommender_model.ops.quantized as q
+    import two_tower_recommender_model.models.two_tower as tt
+    from two_tower_recommender_model import config as cfg_lib
+    from two_tower_recommender_model.train.step import create_train_state
+    from two_tower_recommender_model.utils.checkpoint import (
         Checkpointer,
         export_model,
         load_model,

@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.train.step import create_train_state
-from two_tower_recommender_model_tpu.utils.registry import ModelRegistry, register_from_run
-from two_tower_recommender_model_tpu.utils.tracking import ExperimentLogger
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.train.step import create_train_state
+from two_tower_recommender_model.utils.registry import ModelRegistry, register_from_run
+from two_tower_recommender_model.utils.tracking import ExperimentLogger
 
 
 @pytest.fixture
@@ -62,7 +62,7 @@ def test_register_from_run_carries_metrics(setup, tmp_path):
 
 
 def test_serve_from_registry_by_stage(setup):
-    from two_tower_recommender_model_tpu.serving.scorer import load_scorer_from_registry
+    from two_tower_recommender_model.serving.scorer import load_scorer_from_registry
 
     reg, mcfg, state = setup
     v = reg.register("serveme", mcfg, state)

@@ -7,16 +7,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.evaluation.retrieval import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.evaluation.retrieval import (
     evaluate_retrieval,
     export_feature_embeddings,
     retrieval_metrics,
 )
-from two_tower_recommender_model_tpu.models.two_tower import forward, init_params
-from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
-from two_tower_recommender_model_tpu.train.step import create_train_state, make_train_step
+from two_tower_recommender_model.models.two_tower import forward, init_params
+from two_tower_recommender_model.train.pipeline import prefetch_to_device
+from two_tower_recommender_model.train.step import create_train_state, make_train_step
 
 
 def test_export_matches_forward():
@@ -92,7 +92,7 @@ def test_end_to_end_recall_beats_random():
 
 
 def test_per_user_retrieval_table():
-    from two_tower_recommender_model_tpu.evaluation.retrieval import per_user_retrieval_table
+    from two_tower_recommender_model.evaluation.retrieval import per_user_retrieval_table
 
     pred = np.array([[1, 2, 3], [9, 8, 7]])
     users = np.array([10, 20])

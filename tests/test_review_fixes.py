@@ -4,12 +4,12 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data.feature_engineering import sample_negatives
-from two_tower_recommender_model_tpu.data.loader import StreamLoader
-from two_tower_recommender_model_tpu.data.shards import write_dataset
-from two_tower_recommender_model_tpu.evaluation.retrieval import export_feature_embeddings
-from two_tower_recommender_model_tpu.models.two_tower import init_params
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data.feature_engineering import sample_negatives
+from two_tower_recommender_model.data.loader import StreamLoader
+from two_tower_recommender_model.data.shards import write_dataset
+from two_tower_recommender_model.evaluation.retrieval import export_feature_embeddings
+from two_tower_recommender_model.models.two_tower import init_params
 
 
 def test_negative_sampler_no_duplicate_pairs_across_rounds():
@@ -71,8 +71,8 @@ def test_multihost_loader_counts_match_global_min(tmp_path):
 
 
 def test_int32_negative_overflow_prehashed():
-    from two_tower_recommender_model_tpu.data import Featurizer
-    from two_tower_recommender_model_tpu.data.device_featurizer import (
+    from two_tower_recommender_model.data import Featurizer
+    from two_tower_recommender_model.data.device_featurizer import (
         PackedFeaturizer, unpack_batch)
     import jax
     import jax.numpy as jnp
@@ -89,14 +89,15 @@ def test_int32_negative_overflow_prehashed():
                                   host.features["user_id"].mask)
 
 
-def test_pallas_lookup_env_routing(monkeypatch, rng):
+def test_pallas_lookup_env_routing(rng):
+    """The pooled lookup has one route, XLA's gather: a multi-slot masked
+    bag pools to the numpy reference."""
     import jax.numpy as jnp
-    from two_tower_recommender_model_tpu.ops.embedding_ops import pooled_lookup
+    from two_tower_recommender_model.ops.embedding_ops import pooled_lookup
 
-    monkeypatch.setenv("TTRM_TPU_PALLAS_LOOKUP", "1")
     table = jnp.asarray(rng.normal(size=(40, 64)), jnp.float32)
     ids = jnp.asarray(rng.integers(0, 40, (10, 2)), jnp.int32)
     mask = jnp.asarray((rng.random((10, 2)) > 0.3), jnp.float32)
-    got = pooled_lookup(table, ids, mask, "sum")  # CPU -> auto falls back, still correct
+    got = pooled_lookup(table, ids, mask, "sum")
     want = (np.asarray(table)[np.asarray(ids)] * np.asarray(mask)[..., None]).sum(1)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

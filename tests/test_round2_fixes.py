@@ -19,19 +19,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.data.device_featurizer import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.data.device_featurizer import (
     PackedFeaturizer,
     unpack_batch,
 )
-from two_tower_recommender_model_tpu.evaluation.retrieval import (
+from two_tower_recommender_model.evaluation.retrieval import (
     evaluate_retrieval,
     export_feature_embeddings,
     retrieval_metrics,
 )
-from two_tower_recommender_model_tpu.models import losses as losses_lib
-from two_tower_recommender_model_tpu.train.step import create_train_state, make_train_step
+from two_tower_recommender_model.models import losses as losses_lib
+from two_tower_recommender_model.train.step import create_train_state, make_train_step
 
 
 def test_recall_divides_by_target_count_not_k():
@@ -51,7 +51,7 @@ def mcfg():
 
 def test_uint32_ids_match_host_featurizer(mcfg):
     # id 3000000000 >= 2^31: naive int32 assignment wraps negative; the host
-    # Featurizer hashes the raw value. Device must agree (ADVICE finding 2).
+    # Featurizer hashes the raw value. Device must agree.
     cols = {
         "user_id": np.array([3_000_000_000, 7, 0, 2_000], np.uint32),
         "product_id": np.array([1, 2, 3, 4], np.uint32),
@@ -106,7 +106,7 @@ def test_int8_state_exports_and_evaluates():
 
 
 def test_chunk_buffer_cursor_semantics():
-    from two_tower_recommender_model_tpu.data.loader import _ChunkBuffer
+    from two_tower_recommender_model.data.loader import _ChunkBuffer
 
     buf = _ChunkBuffer()
     buf.push({"x": np.arange(5), "y": np.arange(5) * 10})
@@ -148,7 +148,7 @@ def test_weighted_bce_reachable_from_train_config():
     new_state, out = step(state, batch)
 
     # oracle: forward logits -> manual weighted bce
-    from two_tower_recommender_model_tpu.models.two_tower import forward
+    from two_tower_recommender_model.models.two_tower import forward
 
     q, c = forward({"tables": state.tables, **state.dense_params}, batch, mcfg)
     logits = jnp.sum(q * c, axis=1)
@@ -163,7 +163,7 @@ def test_weighted_bce_reachable_from_train_config():
 def test_per_table_dtype_mix():
     """One int8 side table among f32 tables (TableConfig.dtype override):
     trains, exports, and round-trips through config JSON."""
-    from two_tower_recommender_model_tpu.ops.quantized import QuantizedTable
+    from two_tower_recommender_model.ops.quantized import QuantizedTable
 
     mcfg = cfg_lib.ModelConfig(
         tables=(
@@ -182,7 +182,7 @@ def test_per_table_dtype_mix():
     rng = np.random.default_rng(0)
     feat_cols = {"a": rng.integers(1, 50, 32), "b": rng.integers(1, 30, 32),
                  "label": rng.integers(0, 2, 32)}
-    from two_tower_recommender_model_tpu.data import Featurizer
+    from two_tower_recommender_model.data import Featurizer
 
     batch = jax.tree.map(jnp.asarray, Featurizer(mcfg)(feat_cols))
     state, out = step(state, batch)
@@ -221,7 +221,7 @@ def test_text_side_features_precomputed_path(tmp_path):
     import importlib.util
     import os
 
-    from two_tower_recommender_model_tpu.data.text_features import (
+    from two_tower_recommender_model.data.text_features import (
         save_precomputed_embeddings,
     )
 
@@ -234,7 +234,7 @@ def test_text_side_features_precomputed_path(tmp_path):
 
     import pandas as pd
 
-    from two_tower_recommender_model_tpu.data.text_features import (
+    from two_tower_recommender_model.data.text_features import (
         build_product_text_features,
     )
 
@@ -258,7 +258,7 @@ def test_text_side_features_precomputed_path(tmp_path):
 def test_export_dense_matches_forward():
     """Exported embedding with per-id dense == tower forward on a batch
     carrying the same dense values."""
-    from two_tower_recommender_model_tpu.models.two_tower import forward, init_params
+    from two_tower_recommender_model.models.two_tower import forward, init_params
 
     mcfg = cfg_lib.two_tower_model_config(num_users=30, num_items=20, embedding_dim=8,
                                           layer_sizes=(16, 4))
@@ -282,7 +282,7 @@ def test_export_dense_matches_forward():
 def test_quantized_dense_update_matches_sorted():
     """The transient-dense int8 update must match the sorted-segment variant:
     untouched rows bitwise, touched rows to quantization tolerance."""
-    from two_tower_recommender_model_tpu.ops.quantized import (
+    from two_tower_recommender_model.ops.quantized import (
         quantize_table,
         quantized_dense_rowwise_adagrad,
         quantized_rowwise_adagrad,

@@ -6,14 +6,14 @@ numbers it emits."""
 
 import re
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.parallel.planner import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.parallel.planner import (
     ROW_SHARDED,
     TABLE_WISE,
     comm_volume_report,
     plan_sharding,
 )
-from two_tower_recommender_model_tpu.parallel.scaling import (
+from two_tower_recommender_model.parallel.scaling import (
     collective_bytes,
     predict_weak_scaling,
     scaling_table,
@@ -44,8 +44,8 @@ def _dryrun_cfg():
 
 def test_dense_bytes_pin_to_dryrun_report():
     """collective_bytes(dense) must equal comm_volume_report line by line —
-    the dryrun output (591,360 B/device at bs=128, MULTICHIP_r04) is the
-    ground truth the model extrapolates from."""
+    the dryrun output (591,360 B/device at bs=128) is the ground truth the
+    model extrapolates from."""
     mcfg = _dryrun_cfg()
     plan = plan_sharding(
         mcfg, 8,
@@ -55,7 +55,7 @@ def test_dense_bytes_pin_to_dryrun_report():
     report = comm_volume_report(mcfg, plan, 128)
     report_total = int(
         re.search(r"total\s+([\d,]+)", report).group(1).replace(",", ""))
-    assert report_total == 591_360  # the committed MULTICHIP_r04 figure
+    assert report_total == 591_360
 
     cm = collective_bytes(mcfg, plan, 128, 8, exchange="dense")
     # the model adds the dense-tower grad psum on top of the table exchange
@@ -94,39 +94,40 @@ def test_alltoall_bytes_are_local_batch_scaled():
 
 
 def test_weak_scaling_predictions():
-    """At the measured bf16 single-chip step (6.53 ms @ 262k), the dense
-    scheme's predicted 8-chip efficiency collapses while alltoall with the
-    bf16 wire clears the BASELINE.md >=85% north-star once XLA's measured
-    overlap class (>=0.5 of comm hidden under the one-jit-program step) is
-    credited; with zero overlap credit it still beats the reference's ~50%
-    4-GPU / ~33% 8-GPU per-chip efficiency."""
+    """Over NVLink, the dense scheme's predicted efficiency falls as the mesh
+    grows while alltoall holds flat, and each cheaper wire (bf16) or overlap
+    credit only raises it. The 2 ms single-device step is an assumed input,
+    not a measurement."""
     mcfg = cfg_lib.two_tower_model_config(
         num_users=FLAGSHIP_USERS, num_items=FLAGSHIP_ITEMS, embedding_dim=128)
     plan = plan_sharding(mcfg, 8, force={
         "t_user_id": ROW_SHARDED, "t_product_id": ROW_SHARDED})
-    step_ms, bs = 6.53, 262_144
+    step_ms, bs = 2.0, 262_144
 
     dense = predict_weak_scaling(step_ms, bs, mcfg, plan, 8, exchange="dense")
-    assert dense.efficiency < 0.10  # the dense scheme cannot scale (8.3%)
+    dense16 = predict_weak_scaling(step_ms, bs, mcfg, plan, 16, exchange="dense")
+    assert dense.efficiency < 0.2  # O(B_global) comm: 12.2%
+    assert dense16.efficiency < dense.efficiency
 
     a2a = predict_weak_scaling(step_ms, bs, mcfg, plan, 8,
                                exchange="alltoall")
-    assert a2a.efficiency > 0.65  # no overlap credit: 69% > reference's 33%
+    assert a2a.efficiency > 0.7  # no overlap credit: 77%
 
     a2a_bf16 = predict_weak_scaling(step_ms, bs, mcfg, plan, 8,
                                     exchange="alltoall",
                                     wire_bytes_per_value=2)
-    assert a2a_bf16.efficiency > 0.80  # 81.5% with zero overlap credit
+    assert a2a_bf16.efficiency > a2a.efficiency
 
     a2a_overlap = predict_weak_scaling(step_ms, bs, mcfg, plan, 8,
                                        exchange="alltoall",
                                        wire_bytes_per_value=2, overlap=0.5)
-    assert a2a_overlap.efficiency > 0.85  # 89.8%: the north-star config
+    assert a2a_overlap.efficiency > a2a_bf16.efficiency
 
-    # alltoall comm is mesh-flat: 16-chip efficiency == 8-chip
+    # alltoall comm is mesh-flat: 16-device efficiency == 8-device
     a2a16 = predict_weak_scaling(step_ms, bs, mcfg, plan, 16,
                                  exchange="alltoall", wire_bytes_per_value=2)
     assert abs(a2a16.efficiency - a2a_bf16.efficiency) < 0.02
 
     table = scaling_table(step_ms, bs, mcfg, plan)
     assert "alltoall (bf16 wire)" in table and "dense" in table
+    assert "predicted, not measured" in table

@@ -9,12 +9,12 @@ import jax
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data.shards import ShardedDataset, write_dataset
-from two_tower_recommender_model_tpu.models.two_tower import init_params
-from two_tower_recommender_model_tpu.serving import Scorer
-from two_tower_recommender_model_tpu.serving.batch import batch_predict
-from two_tower_recommender_model_tpu.serving.server import ModelServer, validate_serving_input
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data.shards import ShardedDataset, write_dataset
+from two_tower_recommender_model.models.two_tower import init_params
+from two_tower_recommender_model.serving import Scorer
+from two_tower_recommender_model.serving.batch import batch_predict
+from two_tower_recommender_model.serving.server import ModelServer, validate_serving_input
 
 
 @pytest.fixture(scope="module")
@@ -98,9 +98,9 @@ def test_batch_predict_ttrs(scorer, tmp_path, rng):
 
 
 def test_retrieve_endpoint(tmp_path, rng):
-    from two_tower_recommender_model_tpu.serving import RetrievalService
-    from two_tower_recommender_model_tpu.models.two_tower import init_params
-    from two_tower_recommender_model_tpu.evaluation.retrieval import export_feature_embeddings
+    from two_tower_recommender_model.serving import RetrievalService
+    from two_tower_recommender_model.models.two_tower import init_params
+    from two_tower_recommender_model.evaluation.retrieval import export_feature_embeddings
 
     mcfg = cfg_lib.two_tower_model_config(num_users=50, num_items=30, embedding_dim=8)
     params = init_params(jax.random.key(0), mcfg)

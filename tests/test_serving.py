@@ -3,11 +3,11 @@
 import numpy as np
 import jax
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.models.two_tower import init_params
-from two_tower_recommender_model_tpu.serving import Scorer, load_scorer
-from two_tower_recommender_model_tpu.train.step import create_train_state
-from two_tower_recommender_model_tpu.utils.checkpoint import export_model
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.models.two_tower import init_params
+from two_tower_recommender_model.serving import Scorer, load_scorer
+from two_tower_recommender_model.train.step import create_train_state
+from two_tower_recommender_model.utils.checkpoint import export_model
 
 
 def _mcfg():
@@ -70,9 +70,9 @@ def test_retrieval_service_sharded_mesh_matches_single_device():
     non-device-multiple corpus (49 items -> 48 rows after the sentinel
     isn't a multiple of 8) and a refresh()."""
     import jax
-    from two_tower_recommender_model_tpu.parallel import make_mesh
-    from two_tower_recommender_model_tpu.models.two_tower import init_params
-    from two_tower_recommender_model_tpu.serving import RetrievalService
+    from two_tower_recommender_model.parallel import make_mesh
+    from two_tower_recommender_model.models.two_tower import init_params
+    from two_tower_recommender_model.serving import RetrievalService
 
     mcfg = cfg_lib.two_tower_model_config(num_users=80, num_items=51,
                                           embedding_dim=16, layer_sizes=(16, 8))

@@ -1,15 +1,15 @@
 """Multi-device correctness on the 8-device CPU mesh: the sharded train step
 must reproduce the single-device step bit-for-bit (up to float tolerance) —
-the TPU analog of validating DMP against single-GPU numerics (SURVEY §7.4)."""
+the JAX analog of validating DMP against single-GPU numerics (SURVEY §7.4)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.parallel import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.parallel import (
     batch_sharding,
     make_mesh,
     make_sharded_eval_step,
@@ -17,18 +17,18 @@ from two_tower_recommender_model_tpu.parallel import (
     plan_sharding,
     shard_train_state,
 )
-from two_tower_recommender_model_tpu.parallel.planner import REPLICATED, ROW_SHARDED
-from two_tower_recommender_model_tpu.parallel.sharded import (
+from two_tower_recommender_model.parallel.planner import REPLICATED, ROW_SHARDED
+from two_tower_recommender_model.parallel.sharded import (
     make_sharded_lookup,
     unshard_train_state,
 )
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model.train.step import (
     create_train_state,
     eval_state_init,
     make_eval_step,
     make_train_step,
 )
-from two_tower_recommender_model_tpu.models.metrics import auroc_compute, mean_compute
+from two_tower_recommender_model.models.metrics import auroc_compute, mean_compute
 
 
 def _put_batch(batch, mesh):
@@ -155,7 +155,7 @@ def test_planner_budget_and_plan_print():
 
 
 def test_sharded_topk_matches_dense(rng):
-    from two_tower_recommender_model_tpu.parallel.sharded import make_sharded_topk
+    from two_tower_recommender_model.parallel.sharded import make_sharded_topk
     from jax.sharding import NamedSharding
     from jax import P as _P
 
@@ -175,7 +175,7 @@ def test_sharded_topk_matches_dense(rng):
 
 def test_sharded_topk_k_exceeds_shard(rng):
     # k larger than any single shard's row count still returns global top-k
-    from two_tower_recommender_model_tpu.parallel.sharded import make_sharded_topk
+    from two_tower_recommender_model.parallel.sharded import make_sharded_topk
     from jax.sharding import NamedSharding
     from jax import P as _P
 
@@ -194,7 +194,7 @@ def test_sharded_topk_non_multiple_corpus(rng):
     49,688 Instacart items minus the sentinel = 49,687) are padded and
     masked internally — pad rows can never evict real candidates, indices
     stay exact global rows."""
-    from two_tower_recommender_model_tpu.parallel.sharded import make_sharded_topk
+    from two_tower_recommender_model.parallel.sharded import make_sharded_topk
 
     mesh = make_mesh(4, 2)
     # 119 rows over 8 devices; make every true score NEGATIVE so a zero pad
@@ -214,8 +214,8 @@ def test_sharded_topk_non_multiple_corpus(rng):
 def test_padded_eval_matches_unpadded(setup):
     """Zero-weight padding must not change eval metrics: sharded eval over
     padded ragged batches == single-device eval over the raw stream."""
-    from two_tower_recommender_model_tpu.data.featurizer import pad_batch
-    from two_tower_recommender_model_tpu.data import SyntheticClickstream
+    from two_tower_recommender_model.data.featurizer import pad_batch
+    from two_tower_recommender_model.data import SyntheticClickstream
 
     mcfg, tcfg, _ = setup
     ds = SyntheticClickstream(100, 60, seed=3)
@@ -250,7 +250,7 @@ def test_column_sharded_matches_single_device(setup, mesh_shape):
     """Column-sharded tables (TorchRec's column-wise sharder analog) must
     reproduce single-device numerics, including the cross-shard psum in the
     row-wise Adagrad accumulator."""
-    from two_tower_recommender_model_tpu.parallel.planner import COLUMN_SHARDED
+    from two_tower_recommender_model.parallel.planner import COLUMN_SHARDED
 
     mcfg, tcfg, batches = setup
     mesh = make_mesh(*mesh_shape)
@@ -280,7 +280,7 @@ def test_column_sharded_matches_single_device(setup, mesh_shape):
 
 
 def test_mixed_row_column_replicated(setup):
-    from two_tower_recommender_model_tpu.parallel.planner import COLUMN_SHARDED
+    from two_tower_recommender_model.parallel.planner import COLUMN_SHARDED
 
     mcfg, tcfg, batches = setup
     mesh = make_mesh(8, 1)
@@ -304,7 +304,7 @@ def test_mixed_row_column_replicated(setup):
 def test_column_sharded_dim_padding():
     """embedding_dim not divisible by device count pads columns; numerics and
     export shape stay correct."""
-    from two_tower_recommender_model_tpu.parallel.planner import COLUMN_SHARDED
+    from two_tower_recommender_model.parallel.planner import COLUMN_SHARDED
 
     mcfg = cfg_lib.two_tower_model_config(num_users=50, num_items=30, embedding_dim=12,
                                           layer_sizes=(16, 8))
@@ -339,9 +339,9 @@ def test_pad_to_eval_with_all_padding_batches(setup):
     rows, and an all-padding (0-row source) batch contributes NOTHING to the
     metrics — the multi-host aligned-eval contract (a host whose data ran
     out keeps dispatching filler batches so collectives line up)."""
-    from two_tower_recommender_model_tpu.data import SyntheticClickstream
-    from two_tower_recommender_model_tpu.data.featurizer import pad_batch_to
-    from two_tower_recommender_model_tpu.train.loop import evaluate
+    from two_tower_recommender_model.data import SyntheticClickstream
+    from two_tower_recommender_model.data.featurizer import pad_batch_to
+    from two_tower_recommender_model.train.loop import evaluate
 
     mcfg, tcfg, _ = setup
     ds = SyntheticClickstream(100, 60, seed=4)
@@ -529,15 +529,15 @@ def test_alltoall_overflow_survives_macro_scan(setup):
     drops are the one failure mode the static-capacity design may not
     have): a clean run reports 0, and the packed multi-step output shape
     stays loop-compatible."""
-    from two_tower_recommender_model_tpu.data.device_featurizer import (
+    from two_tower_recommender_model.data.device_featurizer import (
         PackedFeaturizer,
     )
-    from two_tower_recommender_model_tpu.parallel import (
+    from two_tower_recommender_model.parallel import (
         macro_batch_sharding,
         make_sharded_multi_step,
     )
-    from two_tower_recommender_model_tpu.train.step import stack_batches
-    from two_tower_recommender_model_tpu.train.pipeline import device_put_batch
+    from two_tower_recommender_model.train.step import stack_batches
+    from two_tower_recommender_model.train.pipeline import device_put_batch
 
     mcfg, _, _ = setup
     tcfg = cfg_lib.TrainConfig(sharded_exchange="alltoall",
@@ -548,7 +548,7 @@ def test_alltoall_overflow_survives_macro_scan(setup):
     state, dense_opt = create_train_state(jax.random.key(0), mcfg, tcfg)
     sh_state = shard_train_state(state, plan, mesh)
     feat = PackedFeaturizer(mcfg, pack_label=True)
-    from two_tower_recommender_model_tpu.data import SyntheticClickstream
+    from two_tower_recommender_model.data import SyntheticClickstream
 
     ds = SyntheticClickstream(100, 60, seed=4)
     mb = device_put_batch(
@@ -573,7 +573,7 @@ def test_alltoall_overflow_raises_from_loop_and_eval():
     and evaluate() raises before returning metrics (the 'never drop
     silently' invariant, CLAUDE.md) — both driven end-to-end through the
     public loop APIs."""
-    from two_tower_recommender_model_tpu.train.loop import evaluate, train_one_epoch
+    from two_tower_recommender_model.train.loop import evaluate, train_one_epoch
 
     mcfg = cfg_lib.two_tower_model_config(num_users=4096, num_items=60,
                                           embedding_dim=16, layer_sizes=(32, 8))
@@ -610,7 +610,7 @@ def test_sharded_topk_valid_count_masks_resident_padding(rng):
     """A pre-padded resident corpus (the serving pattern) with `valid=` set
     must mask its zero pad rows exactly like internal padding — zero rows
     would otherwise beat all-negative true scores."""
-    from two_tower_recommender_model_tpu.parallel.sharded import make_sharded_topk
+    from two_tower_recommender_model.parallel.sharded import make_sharded_topk
 
     mesh = make_mesh(8, 1)
     true_rows = 117

@@ -1,8 +1,8 @@
 """Sorted-batch fast paths in the SHARDED (multi-chip) train step.
 
-The single-device sorted-scatter hint and block-sorted MXU kernels
-(DESIGN §6c/§6e) extend to row-sharded tables because a globally sorted id
-stream stays non-decreasing after subtracting each shard's base row. These
+The single-device sorted-scatter hint (DESIGN §6c) extends to row-sharded
+tables because a globally sorted id stream stays non-decreasing after
+subtracting each shard's base row. These
 tests pin the contract: sharded training on host-sorted batches must
 reproduce the single-device step's numerics on every mesh shape.
 """
@@ -12,18 +12,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.parallel import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.parallel import (
     batch_sharding,
     make_mesh,
     make_sharded_train_step,
     plan_sharding,
     shard_train_state,
 )
-from two_tower_recommender_model_tpu.parallel.planner import REPLICATED, ROW_SHARDED
-from two_tower_recommender_model_tpu.parallel.sharded import unshard_train_state
-from two_tower_recommender_model_tpu.train.step import create_train_state, make_train_step
+from two_tower_recommender_model.parallel.planner import REPLICATED, ROW_SHARDED
+from two_tower_recommender_model.parallel.sharded import unshard_train_state
+from two_tower_recommender_model.train.step import create_train_state, make_train_step
 
 
 def _sort_batch(batch, n_users: int):
@@ -108,38 +108,6 @@ def test_sorted_hint_sharded_matches_single_device(mesh_shape):
     _assert_states_close(ref, got)
 
 
-@pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
-def test_block_sorted_sharded_matches_single_device(mesh_shape):
-    """block_sorted_kernel routes the sorted table's lookup AND update through
-    the one-hot MXU kernels per shard; numerics match the single-device plain
-    step (f32-exact gather; aggregation differs only by f32 summation order)."""
-    mcfg, batches = _make_setup(embedding_dim=128, batch_size=128)
-    tcfg = cfg_lib.TrainConfig(
-        sparse_learning_rate=0.05, learning_rate=1e-3,
-        sorted_feature="user_id", block_sorted_kernel="float32",
-    )
-    ref_tcfg = cfg_lib.TrainConfig(sparse_learning_rate=0.05, learning_rate=1e-3)
-
-    mesh = make_mesh(*mesh_shape)
-    plan = plan_sharding(mcfg, mesh.devices.size, force={
-        "t_user_id": ROW_SHARDED, "t_product_id": ROW_SHARDED})
-    state, dense_opt = create_train_state(jax.random.key(0), mcfg, ref_tcfg)
-
-    ref_state = state
-    ref_step = make_train_step(mcfg, ref_tcfg, dense_opt, donate=False)
-    for b in batches:
-        ref_state, ref_out = ref_step(ref_state, b)
-
-    sh_state = shard_train_state(state, plan, mesh)
-    step = make_sharded_train_step(mcfg, tcfg, dense_opt, mesh, plan, donate=False)
-    for b in batches:
-        sh_state, out = step(sh_state, _put_batch(b, mesh))
-
-    np.testing.assert_allclose(float(out["loss"]), float(ref_out["loss"]), rtol=1e-5)
-    _assert_states_close(ref_state, unshard_train_state(sh_state, plan, mcfg),
-                         rtol=1e-4, atol=1e-5)
-
-
 def test_sorted_replicated_matches_single_device():
     """A REPLICATED sorted table takes the deterministic every-device sorted
     update (globally sorted flat ids need no shard-base shift)."""
@@ -154,15 +122,17 @@ def test_sorted_replicated_matches_single_device():
     _assert_states_close(ref, got)
 
 
-def test_block_kernel_requires_row_sharded():
-    mcfg, _ = _make_setup(embedding_dim=128, batch_size=128, n_batches=0)
-    tcfg = cfg_lib.TrainConfig(sorted_feature="user_id",
-                               block_sorted_kernel="float32")
+def test_sorted_feature_rejects_table_wise():
+    """The sorted fast paths cover row-sharded and replicated tables only."""
+    from two_tower_recommender_model.parallel.planner import TABLE_WISE
+
+    mcfg, _ = _make_setup(embedding_dim=16, batch_size=64, n_batches=0)
+    tcfg = cfg_lib.TrainConfig(sorted_feature="user_id")
     mesh = make_mesh(8, 1)
     plan = plan_sharding(mcfg, 8, force={
-        "t_user_id": REPLICATED, "t_product_id": REPLICATED})
+        "t_user_id": TABLE_WISE, "t_product_id": REPLICATED})
     _, dense_opt = create_train_state(jax.random.key(0), mcfg, tcfg)
-    with pytest.raises(ValueError, match="row_sharded"):
+    with pytest.raises(ValueError, match="row_sharded or"):
         make_sharded_train_step(mcfg, tcfg, dense_opt, mesh, plan, donate=False)
 
 
@@ -173,12 +143,12 @@ def test_sharded_compact_multi_step_matches_single_device(delta):
     training."""
     import jax.numpy as jnp
 
-    from two_tower_recommender_model_tpu.data.compact import (
+    from two_tower_recommender_model.data.compact import (
         CompactFeaturizer, CompactScheme, batch_from_compact)
-    from two_tower_recommender_model_tpu.data.device_featurizer import PackedFeaturizer
-    from two_tower_recommender_model_tpu.parallel import (
+    from two_tower_recommender_model.data.device_featurizer import PackedFeaturizer
+    from two_tower_recommender_model.parallel import (
         compact_macro_shardings, make_sharded_compact_multi_step)
-    from two_tower_recommender_model_tpu.train.step import make_multi_step, stack_batches
+    from two_tower_recommender_model.train.step import make_multi_step, stack_batches
 
     mcfg = cfg_lib.two_tower_model_config(
         num_users=500, num_items=200, embedding_dim=16, layer_sizes=(32, 8))
@@ -195,7 +165,7 @@ def test_sharded_compact_multi_step_matches_single_device(delta):
 
     state, dense_opt = create_train_state(jax.random.key(0), mcfg, tcfg)
 
-    from two_tower_recommender_model_tpu.train.step import make_train_step as _mts
+    from two_tower_recommender_model.train.step import make_train_step as _mts
     core = _mts(mcfg, tcfg, dense_opt, donate=False, jit=False)
     ref_multi = make_multi_step(
         lambda s, cb: core(s, batch_from_compact(cb, mcfg, scheme)), donate=False)
@@ -220,60 +190,40 @@ def test_sharded_compact_multi_step_matches_single_device(delta):
 
 
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
-def test_device_sort_kernel_unsorted_sharded_matches_single_device(mesh_shape):
-    """block_sorted_kernel WITHOUT sorted_feature (device-sort update mode):
-    UNSORTED batches, eligible f32 tables update through
-    device_sorted_fused_adagrad per shard (row-sharded) and per replica
-    (replicated); numerics match the single-device plain step."""
+def test_unsorted_row_and_replicated_sharded_matches_single_device(mesh_shape):
+    """UNSORTED batches: the row-sharded table takes the sorted-segment
+    update per shard and the replicated one the every-device update;
+    numerics match the single-device step."""
     mcfg = cfg_lib.two_tower_model_config(
-        num_users=100, num_items=60, embedding_dim=128, layer_sizes=(32, 8),
+        num_users=100, num_items=60, embedding_dim=32, layer_sizes=(32, 8),
     )
     ds = SyntheticClickstream(100, 60, seed=7)
     feat = Featurizer(mcfg)
     batches = [
         jax.tree.map(np.asarray, feat(ds.sample(128, start=i))) for i in range(3)
     ]  # NOT sorted
-    tcfg = cfg_lib.TrainConfig(
-        sparse_learning_rate=0.05, learning_rate=1e-3, block_sorted_kernel="float32",
+    tcfg = cfg_lib.TrainConfig(sparse_learning_rate=0.05, learning_rate=1e-3)
+    ref, got = _run_pair(
+        mcfg, tcfg, batches, mesh_shape,
+        force={"t_user_id": ROW_SHARDED, "t_product_id": REPLICATED},
     )
-    ref_tcfg = cfg_lib.TrainConfig(sparse_learning_rate=0.05, learning_rate=1e-3)
-
-    mesh = make_mesh(*mesh_shape)
-    plan = plan_sharding(mcfg, mesh.devices.size, force={
-        "t_user_id": ROW_SHARDED, "t_product_id": REPLICATED})
-    state, dense_opt = create_train_state(jax.random.key(0), mcfg, ref_tcfg)
-
-    ref_state = state
-    ref_step = make_train_step(mcfg, ref_tcfg, dense_opt, donate=False)
-    for b in batches:
-        ref_state, ref_out = ref_step(ref_state, b)
-
-    sh_state = shard_train_state(state, plan, mesh)
-    step = make_sharded_train_step(mcfg, tcfg, dense_opt, mesh, plan, donate=False)
-    for b in batches:
-        sh_state, out = step(sh_state, _put_batch(b, mesh))
-
-    np.testing.assert_allclose(float(out["loss"]), float(ref_out["loss"]), rtol=1e-5)
-    _assert_states_close(ref_state, unshard_train_state(sh_state, plan, mcfg),
-                         rtol=1e-4, atol=1e-5)
+    _assert_states_close(ref, got, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("mesh_shape", [(8, 1), (4, 2)])
-def test_int8_block_sorted_sharded_matches_single_device(mesh_shape):
-    """int8 tables + sorted_feature + block_sorted_kernel: the sorted table's
-    shard streams as raw int8 through the quantized block gather and the
-    fused dequant/requant Adagrad; the unsorted int8 table rides the
-    device-sort front-end. Contract vs the single-device step is dequantized
-    closeness (per-shard aggregation order can flip one int8 rounding step)."""
+def test_int8_sorted_sharded_matches_single_device(mesh_shape):
+    """int8 tables + sorted_feature: the sorted table's shards take the
+    quantized segment update on their monotone local ids. Contract vs the
+    single-device step is dequantized closeness (per-shard aggregation order
+    can flip one int8 rounding step)."""
     import dataclasses
 
-    from two_tower_recommender_model_tpu.ops.quantized import dequantize_table
+    from two_tower_recommender_model.ops.quantized import dequantize_table
 
-    mcfg, batches = _make_setup(embedding_dim=128, batch_size=128)
+    mcfg, batches = _make_setup(embedding_dim=32, batch_size=128)
     mcfg = dataclasses.replace(mcfg, table_dtype="int8")
     tcfg = cfg_lib.TrainConfig(
-        sparse_learning_rate=0.05, learning_rate=1e-3,
-        sorted_feature="user_id", block_sorted_kernel="float32",
+        sparse_learning_rate=0.05, learning_rate=1e-3, sorted_feature="user_id",
     )
     mesh = make_mesh(*mesh_shape)
     plan = plan_sharding(mcfg, mesh.devices.size, force={

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu.data.shards import (
+from two_tower_recommender_model.data.shards import (
     ShardedDataset,
     ShardWriter,
     read_shard,

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.parallel import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.parallel import (
     batch_sharding,
     make_mesh,
     make_sharded_eval_step,
@@ -17,19 +17,19 @@ from two_tower_recommender_model_tpu.parallel import (
     plan_sharding,
     shard_train_state,
 )
-from two_tower_recommender_model_tpu.parallel.planner import (
+from two_tower_recommender_model.parallel.planner import (
     REPLICATED,
     ROW_SHARDED,
     TABLE_WISE,
 )
-from two_tower_recommender_model_tpu.parallel.sharded import unshard_train_state
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model.parallel.sharded import unshard_train_state
+from two_tower_recommender_model.train.step import (
     create_train_state,
     eval_state_init,
     make_eval_step,
     make_train_step,
 )
-from two_tower_recommender_model_tpu.models.metrics import auroc_compute, mean_compute
+from two_tower_recommender_model.models.metrics import auroc_compute, mean_compute
 
 
 def _put_batch(batch, mesh):
@@ -175,7 +175,7 @@ def test_table_wise_eval_matches_single(setup):
         ref_es = ref_step(state, ref_es, b)
 
     sh_state = shard_train_state(state, plan, mesh)
-    from two_tower_recommender_model_tpu.parallel import make_sharded_eval_step
+    from two_tower_recommender_model.parallel import make_sharded_eval_step
 
     es = eval_state_init()
     estep = make_sharded_eval_step(mcfg, tcfg, mesh, plan)
@@ -192,11 +192,11 @@ def test_sharded_multi_step_matches_sequential(setup):
     steps == single-device — the multi-chip fast path (make_sharded_multi_step)."""
     import numpy as np
 
-    from two_tower_recommender_model_tpu.data.device_featurizer import PackedFeaturizer
-    from two_tower_recommender_model_tpu.data import SyntheticClickstream
-    from two_tower_recommender_model_tpu.parallel import (
+    from two_tower_recommender_model.data.device_featurizer import PackedFeaturizer
+    from two_tower_recommender_model.data import SyntheticClickstream
+    from two_tower_recommender_model.parallel import (
         macro_batch_sharding, make_sharded_multi_step)
-    from two_tower_recommender_model_tpu.train.step import stack_batches
+    from two_tower_recommender_model.train.step import stack_batches
 
     mcfg, tcfg, batches = setup
     mesh = make_mesh(8, 1)
@@ -235,7 +235,7 @@ def test_comm_volume_report_groups_and_totals():
     """The analytic comm table: replicated tables show only the bwd gather;
     sharded strategies add fwd collectives; every table-wise table of one dim
     rides ONE bucket group; the totals are O(B x D), never O(rows)."""
-    from two_tower_recommender_model_tpu.parallel.planner import comm_volume_report
+    from two_tower_recommender_model.parallel.planner import comm_volume_report
 
     mcfg = cfg_lib.ModelConfig(
         tables=(

@@ -6,11 +6,11 @@ import dataclasses
 import jax
 import numpy as np
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.train.loop import evaluate, train_val_test
-from two_tower_recommender_model_tpu.train.pipeline import prefetch_to_device
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.train.loop import evaluate, train_val_test
+from two_tower_recommender_model.train.pipeline import prefetch_to_device
+from two_tower_recommender_model.train.step import (
     create_train_state,
     make_eval_step,
     make_train_step,
@@ -147,7 +147,7 @@ def test_select_best_on_retrieval_metric():
     RECALL was best (AUROC misleads for the in-batch objective; the r2c
     finding this hook exists for). Uses a scripted eval fn to pin selection
     semantics, then the real make_retrieval_eval_fn for the metric surface."""
-    from two_tower_recommender_model_tpu.evaluation.retrieval import (
+    from two_tower_recommender_model.evaluation.retrieval import (
         make_retrieval_eval_fn,
     )
 

@@ -5,13 +5,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.models import two_tower as tt
-from two_tower_recommender_model_tpu.models.losses import bce_with_logits
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.models import two_tower as tt
+from two_tower_recommender_model.models.losses import bce_with_logits
+from two_tower_recommender_model.train.step import (
     create_train_state,
+    make_apply_gradients,
     make_eval_step,
     make_train_step,
     eval_state_init,
@@ -79,6 +81,41 @@ def test_two_stage_equals_full_autodiff():
                 )
 
 
+@pytest.mark.parametrize("loss", ["bce", "sampled_softmax"])
+def test_step_returns_the_gradients_it_applies(loss):
+    """`with_grads=True` returns the gradients the step applied: the dense
+    gradient and, summed per row, each table's full-autodiff gradient; and
+    `make_apply_gradients` applied to them gives the step's new state."""
+    from two_tower_recommender_model.models import losses as losses_lib
+    from two_tower_recommender_model.train.optimizer import scatter_aggregate
+
+    mcfg, tcfg, batch = _setup(loss)
+    state, dense_opt = create_train_state(jax.random.key(0), mcfg, tcfg)
+    loss_fn = losses_lib.loss_fn_from_config(tcfg, mcfg)
+
+    def loss_of(p):
+        q, c = tt.forward(p, batch, mcfg)
+        return loss_fn(q, c, batch)[0]
+
+    want = jax.grad(loss_of)({"tables": state.tables, **state.dense_params})
+    new_state, out = make_train_step(mcfg, tcfg, dense_opt, donate=False,
+                                     with_grads=True)(state, batch)
+    _, plain = make_train_step(mcfg, tcfg, dense_opt, donate=False)(state, batch)
+    assert set(plain) == {"loss", "logits"}
+    np.testing.assert_array_equal(out["loss"], plain["loss"])
+    grads = out["grads"]
+    for tower in ("query_tower", "candidate_tower"):
+        for a, b in zip(jax.tree.leaves(grads["d_dense"][tower]),
+                        jax.tree.leaves(want[tower])):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+    for name, (ids, g) in grads["table_grads"].items():
+        agg, _ = scatter_aggregate(ids, g, state.tables[name].shape[0])
+        np.testing.assert_allclose(agg, want["tables"][name], rtol=1e-5, atol=1e-7)
+    applied = jax.jit(make_apply_gradients(mcfg, tcfg, dense_opt))(state, grads)
+    for a, b in zip(jax.tree.leaves(applied), jax.tree.leaves(new_state)):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
 def test_train_step_sampled_softmax_runs():
     mcfg, tcfg, batch = _setup(loss="sampled_softmax")
     state, dense_opt = create_train_state(jax.random.key(0), mcfg, tcfg)
@@ -99,13 +136,13 @@ def test_eval_step_accumulates():
 
 
 def test_explicit_sparse_update_overrides_block_kernels():
-    """An explicit `sparse_update` must win over block_sorted_kernel routing
-    (it silently lost to it once): a no-op update leaves every table and
-    accumulator untouched even with the kernels enabled."""
+    """An explicit `sparse_update` must win over the per-table routing,
+    including the sorted table's hinted update: a no-op update leaves every
+    table and accumulator untouched."""
     mcfg = cfg_lib.two_tower_model_config(num_users=40, num_items=25,
                                           embedding_dim=128, layer_sizes=(16, 4))
     tcfg = cfg_lib.TrainConfig(sparse_learning_rate=0.05, learning_rate=1e-3,
-                               block_sorted_kernel="float32")
+                               sorted_feature="user_id")
     ds = SyntheticClickstream(40, 25, seed=1)
     batch = jax.tree.map(jnp.asarray, Featurizer(mcfg)(ds.sample(128)))
     state, dense_opt = create_train_state(jax.random.key(0), mcfg, tcfg)

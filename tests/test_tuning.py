@@ -4,9 +4,9 @@ search, vmapped multi-seed trials."""
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import Featurizer, SyntheticClickstream
-from two_tower_recommender_model_tpu.tuning import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import Featurizer, SyntheticClickstream
+from two_tower_recommender_model.tuning import (
     Choice,
     LogUniform,
     Uniform,
@@ -14,7 +14,7 @@ from two_tower_recommender_model_tpu.tuning import (
     run_sweep,
     sample_space,
 )
-from two_tower_recommender_model_tpu.tuning.sweep import grid_space
+from two_tower_recommender_model.tuning.sweep import grid_space
 
 
 SPACE = {
@@ -72,7 +72,7 @@ def test_sweep_failures_recorded(tmp_path):
     failed = [t for t in res.trials if t.error]
     assert failed and len(res.completed()) + len(failed) == 10
     assert "FAILED" in res.table()
-    from two_tower_recommender_model_tpu.utils.tracking import list_runs
+    from two_tower_recommender_model.utils.tracking import list_runs
     assert len(list_runs(str(tmp_path / "runs"))) == 10
 
 

@@ -8,17 +8,17 @@ import jax
 import numpy as np
 import pytest
 
-from two_tower_recommender_model_tpu import config as cfg_lib
-from two_tower_recommender_model_tpu.data import SyntheticClickstream
-from two_tower_recommender_model_tpu.data.compact import (
+from two_tower_recommender_model import config as cfg_lib
+from two_tower_recommender_model.data import SyntheticClickstream
+from two_tower_recommender_model.data.compact import (
     CompactFeaturizer,
     CompactScheme,
     batch_from_compact,
 )
-from two_tower_recommender_model_tpu.data.device_featurizer import PackedFeaturizer
-from two_tower_recommender_model_tpu.data.wirecache import WireCache, build_wire_cache
-from two_tower_recommender_model_tpu.train.loop import train_one_epoch_packed
-from two_tower_recommender_model_tpu.train.step import (
+from two_tower_recommender_model.data.device_featurizer import PackedFeaturizer
+from two_tower_recommender_model.data.wirecache import WireCache, build_wire_cache
+from two_tower_recommender_model.train.loop import train_one_epoch_packed
+from two_tower_recommender_model.train.step import (
     create_train_state,
     make_multi_step,
     make_train_step,

@@ -1,30 +1,38 @@
-"""two_tower_recommender_model_tpu — a TPU-native two-tower retrieval framework.
+"""The package's former name, kept as an alias so that existing imports keep
+working: importing this package, or any module under it, returns the module
+of the same path under `two_tower_recommender_model`, the very same object
+(so classes, pytree registrations and isinstance checks are shared)."""
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
-two-tower recommender stack (TorchRec `EmbeddingBagCollection` + MLP towers +
-`DistributedModelParallel` + Mosaic streaming + Vector Search retrieval eval):
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-- `config`      — typed configs (the role of `Args` / `config` dicts,
-                  reference `03_model_training.py:55-70`, `config/notebook_config.py`).
-- `data`        — synthetic generator, columnar ingest, feature engineering
-                  (negative sampling / per-user split / id indexing), sharded
-                  streaming dataset + deterministic resumable loader, featurizer
-                  (the role of `transform_to_torchrec_batch`).
-- `models`      — embedding tables, MLP towers, TwoTower model, losses
-                  (BCE parity + in-batch sampled softmax), streaming AUROC.
-- `ops`         — XLA + Pallas kernels: pooled embedding lookup, fused
-                  row-wise-Adagrad update, chunked matmul top-k retrieval.
-- `parallel`    — device mesh, memory-aware sharding planner (the role of
-                  `EmbeddingShardingPlanner`), sharded lookup/update collectives.
-- `train`       — optimizers, train/eval loops, prefetching input pipeline
-                  (the role of `TrainPipelineSparseDist`).
-- `evaluation`  — full-corpus embedding export + exact top-k retrieval metrics
-                  (recall@k / precision@k / NDCG@k / MRR).
-- `serving`     — batch scorer with the PyFunc-style dict-of-arrays contract.
-- `tuning`      — grid/random hyperparameter sweeps, vmapped multi-seed trials.
-- `utils`       — orbax checkpointing with true resume, experiment tracking.
-"""
+import two_tower_recommender_model as _package
 
-__version__ = "0.1.0"
+_OLD, _NEW = __name__, _package.__name__
 
-from two_tower_recommender_model_tpu import config  # noqa: F401
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<old>.x.y` to the already-importable `<new>.x.y`."""
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_OLD + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(_NEW + spec.name[len(_OLD):])
+        self._specs[spec.name] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the shared module
+        module.__spec__ = self._specs.pop(module.__spec__.name)
+
+
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[_OLD] = _package
